@@ -3,23 +3,28 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the SegmentClassifier forward on the fused-kernel ("pallas") route
-at the full width of the fullevent configuration (hidden 64, 6
-iterations, bf16 compute; 36 Toy2D kNN sectors packed into one graph of
-15,848 nodes and 180,736 edges) and checks it:
+Drives the SegmentClassifier on the fused-kernel ("pallas") route at the
+full width of the fullevent configuration (hidden 64, 6 iterations, bf16
+compute; 36 Toy2D kNN sectors packed into one graph of 15,848 nodes and
+180,736 edges), serving and training, and checks it:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``gnn_fpga_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, f32 and bf16, with times (CUDA events);
+3. kernels: each kernel, forward and backward, against its plain PyTorch
+   version at the main path's shapes, f32 and bf16, with times (CUDA
+   events);
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
-   probabilities checked against the port's plain ``sparse`` route.
+   probabilities checked against the port's plain ``sparse`` route;
+5. training: parameter gradients on the kernel route (fused and unfused)
+   against the ``sparse`` route, then 32 Adam steps of the ``Trainer`` on
+   the fused bf16 route over the 8 graphs and one unfused step, with
+   launch counts per step, finite and falling losses, and ms/step.
 
 It prints a JSON line of per-kernel results and ends with one JSON line
 ``{"ok": true, "device": {...}}`` when every phase passed; any failure
-exits non-zero.  ``--profile PATH`` also writes a torch.profiler table of
-three fused requests to PATH.
+exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
+three fused requests and three fused training steps to PATH.
 """
 
 from __future__ import annotations
@@ -37,7 +42,18 @@ N_SECTORS, N_LAYERS, N_TRACKS, K_NN = 36, 20, 22, 12
 N_NODE, N_EDGE = 15_848, 180_736      # padded as the JAX bench packs them
 HIDDEN, N_ITERS, INPUT_DIM = 64, 6, 2
 N_REQUESTS = 8
-KERNEL_SOURCE = "gnn_fpga_tpu_torch/csrc/spmm.cu"
+N_STEPS = 32
+LEARNING_RATE, POS_WEIGHT = 3e-3, 8.0  # bench.py's fullevent TrainConfig
+SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
+           "bwd": "gnn_fpga_tpu_torch/csrc/spmm_bwd.cu"}
+# kernel -> (source, line of the Pallas kernel body it replaces)
+KERNELS = {
+    "iteration_pair": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
+    "aggregate_pair": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:678"),
+    "iteration_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
+    "aggregate_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:806"),
+    "gather_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
+}
 
 # Kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|:
 # f32: the plain version sums in another order (atomics) -> the JAX
@@ -45,11 +61,26 @@ KERNEL_SOURCE = "gnn_fpga_tpu_torch/csrc/spmm.cu"
 # bf16: the kernel rounds its f32 accumulator to bf16 once on output
 #      (half an ulp = 2^-8 relative at worst) -> twice that.
 KERNEL_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-4)}
+# The iteration backward's parameter sums (dw2, db1, db2) add one term per
+# edge over E = 180,736 edges, and the terms cancel: a reordered f32 sum
+# errs in proportion to the terms, not to the result, so their atol is
+# this factor times the largest entry of the plain result (rtol as above).
+PARAM_SUM_ATOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 # Whole forward, fused kernel route vs the plain sparse route, same params:
 # f32 logits differ only by summation order over 6 iterations;
 # bf16 probabilities differ by where each route rounds to bf16.
 F32_LOGIT_TOL = (1e-4, 1e-4)           # (rtol, atol)
 BF16_PROB_MAX_ABS, BF16_PROB_MEAN_ABS = 3e-2, 3e-3
+# Parameter gradients, kernel route vs sparse route, same params and batch:
+# f32 (TF32 off): the JAX package's model-gradient tolerance
+# (tests/test_pallas_spmm.py), elementwise;
+# bf16: ||g_kernel - g_sparse|| / ||g_sparse|| per parameter.  Both routes
+# round activations and gradients to bf16 (2^-9 relative) at different
+# places, and the sparse route sums each node's ~12 messages in bf16
+# atomics (up to ~12 roundings a sum); 5e-2 allows for that through 6
+# iterations forward and back.
+F32_GRAD_TOL = (2e-3, 1e-5)
+BF16_GRAD_REL = 5e-2
 
 
 def fail(msg: str):
@@ -104,22 +135,24 @@ def time_ms(fn, n=20, warmup=3) -> float:
 
 
 def compare(name, got, ref, rtol, atol) -> float:
-    err = (got.float() - ref.float()).abs()
-    lim = atol + rtol * ref.float().abs()
+    got, ref = got.float().reshape(ref.shape), ref.float()
+    err = (got - ref).abs()
+    lim = atol + rtol * ref.abs()
     max_abs = err.max().item()
-    max_rel = (err / ref.float().abs().clamp_min(1e-3)).max().item()
+    max_rel = (err / ref.abs().clamp_min(1e-3)).max().item()
     ok = bool((err <= lim).all())
     print(f"  {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
           f"tol=(rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}",
           flush=True)
-    if not ok or not torch.isfinite(got.float()).all():
+    if not ok or not torch.isfinite(got).all():
         fail(f"{name} disagrees with its plain version")
     return max_abs
 
 
 def phase_kernels(g) -> dict:
-    """Both kernels against their plain versions at the main-path shapes,
-    on random tables over the main path's topology (~1% masked edges)."""
+    """Every kernel against its plain version at the main-path shapes, on
+    random tables and gradients over the main path's topology (~1% masked
+    edges)."""
     from gnn_fpga_tpu_torch.ops.cuda import spmm
 
     dev = g.x.device
@@ -127,42 +160,61 @@ def phase_kernels(g) -> dict:
     d, hdim = HIDDEN + INPUT_DIM, HIDDEN
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
     tabs = dict(pa=rnd(N_NODE, hdim), pb=rnd(N_NODE, hdim), h=rnd(N_NODE, d),
-                w2=rnd(hdim) * 0.25, b1=rnd(hdim), b2=rnd(1))
+                w2=rnd(hdim) * 0.25, b1=rnd(hdim), b2=rnd(1),
+                g_mi=rnd(N_NODE, d), g_mo=rnd(N_NODE, d),
+                g=rnd(N_EDGE, hdim))
     em = (torch.rand(N_EDGE, generator=gen) >= 0.01).float().to(dev)
     em = em * g.edge_mask
     w = torch.rand(N_EDGE, generator=gen).to(dev) * em
     plans, recv = g.plans, g.plans.recv
     em_sorted = spmm.sort_edge_weights(em, recv)
+    s, r = g.senders, g.receivers
     print(f"kernels: V={N_NODE} E={N_EDGE} D={d} H={hdim}, "
           f"{int((em == 0).sum())} masked edges", flush=True)
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         t = {k: v.to(dt) for k, v in tabs.items()}
-        rtol, atol = KERNEL_TOL[dt]
         tag = str(dt).replace("torch.", "")
-
-        def it_kernel():
-            return spmm.iteration_pair(t["pa"], t["pb"], t["h"], em_sorted,
-                                       t["w2"], t["b1"], t["b2"], plans)
-
-        def it_plain():
-            return spmm.iteration_pair_reference(
-                t["pa"], t["pb"], t["h"], em_sorted, t["w2"], t["b1"],
-                t["b2"], recv.sorted_oth, recv.sorted_seg, N_NODE)
-
-        def agg_kernel():
-            return spmm.aggregate_pair(t["h"], w, plans)
-
-        def agg_plain():
-            return spmm.aggregate_pair_reference(t["h"], w, g.senders,
-                                                 g.receivers, N_NODE)
-
-        for name, kern, plain in (("iteration_pair", it_kernel, it_plain),
-                                  ("aggregate_pair", agg_kernel, agg_plain)):
+        ip = (t["pa"], t["pb"], t["h"], em_sorted, t["w2"], t["b1"], t["b2"])
+        ip_ref = ip + (recv.sorted_oth, recv.sorted_seg, N_NODE)
+        grads = (t["g_mi"], t["g_mo"])
+        runs = {
+            "iteration_pair": (
+                lambda: spmm.iteration_pair(*ip, plans),
+                lambda: spmm.iteration_pair_reference(*ip_ref),
+                ("mi", "mo")),
+            "aggregate_pair": (
+                lambda: spmm.aggregate_pair(t["h"], w, plans),
+                lambda: spmm.aggregate_pair_reference(t["h"], w, s, r,
+                                                      N_NODE),
+                ("mi", "mo")),
+            "iteration_pair_bwd": (
+                lambda: spmm.iteration_pair_bwd(*ip, *grads, plans),
+                lambda: spmm.iteration_pair_bwd_reference(
+                    *ip, *grads, recv.sorted_oth, recv.sorted_seg, N_NODE),
+                ("dh", "dpa", "dpb", "dw2", "db1", "db2")),
+            "aggregate_pair_bwd": (
+                lambda: spmm.aggregate_pair_bwd(t["h"], w, *grads, plans),
+                lambda: spmm.aggregate_pair_bwd_reference(
+                    t["h"], w, *grads, s, r, N_NODE),
+                ("dh", "dw")),
+            "gather_pair_bwd": (
+                lambda: spmm.gather_pair_bwd(t["g"], plans),
+                lambda: spmm.gather_pair_bwd_reference(t["g"], s, r, N_NODE),
+                ("dpa", "dpb")),
+        }
+        for name, (kern, plain, sides) in runs.items():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
-            err = max(compare(f"{name} {tag} {side}", a, b, rtol, atol)
-                      for side, a, b in zip(("mi", "mo"), got, ref))
+            err = 0.0
+            for side, a, b in zip(sides, got, ref):
+                rtol, atol = KERNEL_TOL[dt]
+                if side in ("dw2", "db1", "db2"):
+                    atol = PARAM_SUM_ATOL[dt] * b.abs().max().item()
+                elif side == "dw":           # f32 output from T inputs
+                    rtol, atol = KERNEL_TOL[torch.float32]
+                err = max(err, compare(f"{name} {tag} {side}", a, b, rtol,
+                                       atol))
             # plain, kernel, kernel, plain: one card, interleaved
             p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
@@ -172,30 +224,30 @@ def phase_kernels(g) -> dict:
     return out
 
 
-def phase_serving(device, profile_path=None) -> dict:
+def variant_of(model, device, **kw):
+    """A model of ``model``'s config with ``kw`` replaced and its weights."""
+    from gnn_fpga_tpu_torch.models import mpnn
+
+    m = mpnn.SegmentClassifier(dataclasses.replace(model.cfg, **kw),
+                               torch.Generator(), device=device)
+    m.load_state_dict(model.state_dict())
+    return m
+
+
+def phase_serving(device, graphs, profile_path=None) -> dict:
     from gnn_fpga_tpu_torch.models import mpnn
     from gnn_fpga_tpu_torch.ops.cuda import spmm
 
-    t0 = time.perf_counter()
-    graphs = [make_request(seed, device) for seed in range(N_REQUESTS)]
-    print(f"serving: {N_REQUESTS} packed graphs built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
     cfg = mpnn.SegmentClassifierConfig(
         input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
         compute_dtype=torch.bfloat16, aggregation="pallas")
     model = mpnn.init_segment_classifier(
         cfg, torch.Generator().manual_seed(0), device=device)
-
-    def variant(**kw):
-        m = mpnn.SegmentClassifier(dataclasses.replace(cfg, **kw),
-                                   torch.Generator(), device=device)
-        m.load_state_dict(model.state_dict())
-        return m
-
-    unfused = variant(fused_iteration=False)
-    sparse = variant(aggregation="sparse")
-    sparse_f32 = variant(aggregation="sparse", compute_dtype=None)
-    fused_f32 = variant(compute_dtype=None)
+    unfused = variant_of(model, device, fused_iteration=False)
+    sparse = variant_of(model, device, aggregation="sparse")
+    sparse_f32 = variant_of(model, device, aggregation="sparse",
+                            compute_dtype=None)
+    fused_f32 = variant_of(model, device, compute_dtype=None)
 
     def serve(m, g):
         t = time.perf_counter()
@@ -203,24 +255,22 @@ def phase_serving(device, profile_path=None) -> dict:
         torch.cuda.synchronize()
         return p, (time.perf_counter() - t) * 1e3
 
+    print("serving:", flush=True)
     with torch.inference_mode():
         for m in (model, unfused, sparse):       # warm-up, not counted
             serve(m, graphs[0])
-        spmm.iteration_pair.launches = 0
-        spmm.aggregate_pair.launches = 0
+        spmm.reset_launch_counts()
         # --- the main path: 8 requests on the fused route, 1 unfused
         served = [serve(model, g) for g in graphs]
         unfused_probs, unfused_ms = serve(unfused, graphs[0])
-        launches = {"iteration_pair": spmm.iteration_pair.launches,
-                    "aggregate_pair": spmm.aggregate_pair.launches}
+        launches = spmm.launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
-        if launches["iteration_pair"] != N_REQUESTS * N_ITERS:
-            fail(f"iteration_pair launched {launches['iteration_pair']} "
-                 f"times, expected {N_REQUESTS * N_ITERS}")
-        if launches["aggregate_pair"] != N_ITERS:
-            fail(f"aggregate_pair launched {launches['aggregate_pair']} "
-                 f"times, expected {N_ITERS}")
+        expect = dict(iteration_pair=N_REQUESTS * N_ITERS,
+                      aggregate_pair=N_ITERS, iteration_pair_bwd=0,
+                      aggregate_pair_bwd=0, gather_pair_bwd=0)
+        if launches != expect:
+            fail(f"serving launched {launches}, expected {expect}")
         sparse_served = [serve(sparse, g) for g in graphs]
         worst_max = worst_mean = 0.0
         for i, ((p, _), (ps, _)) in enumerate(zip(served, sparse_served)):
@@ -244,7 +294,9 @@ def phase_serving(device, profile_path=None) -> dict:
         compare("f32 logits, kernel route vs sparse route", lf, ls,
                 *F32_LOGIT_TOL)
         if profile_path:
-            write_profile(profile_path, model, graphs)
+            write_profile(profile_path, "w", "3 requests",
+                          lambda: [mpnn.segment_classifier(model, g)
+                                   for g in graphs[:3]])
 
     ms = [t for _, t in served]
     sparse_ms = [t for _, t in sparse_served]
@@ -259,16 +311,118 @@ def phase_serving(device, profile_path=None) -> dict:
     return launches
 
 
-def write_profile(path, model, graphs):
+def _grads(model, g):
+    from gnn_fpga_tpu_torch.train.trainer import masked_bce_with_logits
+
+    model.zero_grad(set_to_none=True)
+    masked_bce_with_logits(model(g), g.y, g.edge_mask, POS_WEIGHT).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def check_gradients(model, g, device):
+    """Parameter gradients of the masked BCE on the kernel route, fused
+    and unfused, against the sparse route, in f32 and in bf16."""
+    for dtype in (None, torch.bfloat16):
+        tag = "bf16" if dtype else "f32"
+        want = _grads(variant_of(model, device, aggregation="sparse",
+                                 compute_dtype=dtype), g)
+        for fused in (True, False):
+            got = _grads(variant_of(model, device, compute_dtype=dtype,
+                                    fused_iteration=fused), g)
+            route = "fused" if fused else "unfused"
+            if dtype is None:
+                for name in want:
+                    compare(f"f32 grad {name}, {route} vs sparse",
+                            got[name], want[name], *F32_GRAD_TOL)
+                continue
+            rel = {name: ((got[name] - want[name]).norm()
+                          / want[name].norm().clamp_min(1e-30)).item()
+                   for name in want}
+            worst = max(rel, key=rel.get)
+            ok = all(torch.isfinite(got[n]).all() for n in got) \
+                and rel[worst] <= BF16_GRAD_REL
+            print(f"  {tag} grads, {route} vs sparse: worst relative norm "
+                  f"{rel[worst]:.3e} ({worst}; tol {BF16_GRAD_REL:g}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"bf16 {route} gradients disagree with the sparse route")
+
+
+def phase_training(device, graphs, profile_path=None) -> dict:
     from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = mpnn.SegmentClassifierConfig(
+        input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+        compute_dtype=torch.bfloat16, aggregation="pallas")
+    model = mpnn.init_segment_classifier(
+        cfg, torch.Generator().manual_seed(1), device=device)
+    tcfg = TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
+    print("training: gradients on graph 0", flush=True)
+    check_gradients(model, graphs[0], device)
+
+    trainer = Trainer(model, tcfg)
+    unfused = Trainer(variant_of(model, device, fused_iteration=False), tcfg)
+    Trainer(variant_of(model, device), tcfg).run_steps(graphs[:1])  # warm-up
+    spmm.reset_launch_counts()
+    # --- the main path: 32 fused steps over the 8 graphs, 1 unfused step
+    losses, step_ms = [], []
+    for i in range(N_STEPS):
+        t = time.perf_counter()
+        losses.append(float(trainer.run_steps([graphs[i % N_REQUESTS]])[0]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    fused_counts = spmm.launch_counts()
+    t = time.perf_counter()
+    unfused_loss = float(unfused.run_steps(graphs[:1])[0])
+    unfused_ms = (time.perf_counter() - t) * 1e3
+    launches = spmm.launch_counts()
+    # --- checks (not counted)
+    unfused_counts = {k: launches[k] - fused_counts[k] for k in launches}
+    per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
+    print(f"  launches per fused step: {per_step}", flush=True)
+    print(f"  launches in the unfused step: {unfused_counts}", flush=True)
+    expect_fused = dict(iteration_pair=N_ITERS, iteration_pair_bwd=N_ITERS,
+                        gather_pair_bwd=1, aggregate_pair=0,
+                        aggregate_pair_bwd=0)
+    expect_unfused = dict(iteration_pair=0, iteration_pair_bwd=0,
+                          gather_pair_bwd=N_ITERS + 1,
+                          aggregate_pair=N_ITERS, aggregate_pair_bwd=N_ITERS)
+    if per_step != expect_fused:
+        fail(f"fused steps launched {per_step} a step, "
+             f"expected {expect_fused}")
+    if unfused_counts != expect_unfused:
+        fail(f"the unfused step launched {unfused_counts}, "
+             f"expected {expect_unfused}")
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    print(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"  mean loss, first 8 steps {first:.4f}, last 8 steps "
+          f"{last:.4f}; unfused step {unfused_loss:.4f}", flush=True)
+    if not torch.isfinite(torch.tensor(losses + [unfused_loss])).all():
+        fail("a training loss is not finite")
+    if not last < first:
+        fail("the training loss did not fall over 32 steps")
+    n_real = int(graphs[0].edge_mask.sum().item())
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"  fused bf16 train step: {mean_ms:.3f} ms/step (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
+          f"synchronised by the loss readback), "
+          f"{n_real / (mean_ms / 1e3):.4e} edges/s; unfused step "
+          f"{unfused_ms:.3f} ms", flush=True)
+    if profile_path:
+        write_profile(profile_path, "a", "3 training steps",
+                      lambda: trainer.run_steps(graphs[:3]))
+    return launches
+
+
+def write_profile(path, mode, what, run):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for g in graphs[:3]:
-            mpnn.segment_classifier(model, g)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages()
@@ -277,9 +431,12 @@ def write_profile(path, model, graphs):
     busy_ms = sum(e.self_device_time_total for e in table
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
-    with open(path, "w") as f:
+    with open(path, mode) as f:
+        f.write(f"==== {what}: wall {wall_ms:.3f} ms, device busy "
+                f"{busy_ms:.3f} ms ====\n")
         f.write(table.table(sort_by="cuda_time_total", row_limit=40))
-    print(f"  profile: 3 requests, wall {wall_ms:.3f} ms, device busy "
+        f.write("\n")
+    print(f"  profile: {what}, wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}, profiler "
           f"on); table in {path}", flush=True)
 
@@ -287,22 +444,25 @@ def write_profile(path, model, graphs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="also write a torch.profiler table to PATH")
+                    help="also write torch.profiler tables to PATH")
     args = ap.parse_args()
     kind = phase_device()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kernels = phase_kernels(make_request(0, device))
-    launches = phase_serving(device, args.profile)
-    rows = []
-    # the Pallas kernel bodies: _iter_pair_kernel and _agg_pair_kernel
-    for name, line in (("iteration_pair", 1134), ("aggregate_pair", 678)):
-        rows.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
-            replaces=f"gnn_fpga_tpu/ops/pallas/spmm.py:{line}",
-            launches=launches[name], **kernels[(name, torch.bfloat16)]))
+    t0 = time.perf_counter()
+    graphs = [make_request(seed, device) for seed in range(N_REQUESTS)]
+    print(f"graphs: {N_REQUESTS} packed graphs built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    kernels = phase_kernels(graphs[0])
+    serving = phase_serving(device, graphs, args.profile)
+    training = phase_training(device, graphs, args.profile)
+    rows = [dict(name=name, route="cuda", source=SOURCES[src],
+                 replaces=replaces,
+                 launches=serving[name] + training[name],
+                 **kernels[(name, torch.bfloat16)])
+            for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,7 +11,9 @@ Subpackages:
   data      Toy2D synthetic tracking graphs
   ops       gather / segment-sum primitives and the CUDA kernel wrappers
   models    the SegmentClassifier interaction network
-  utils     loading parameters written by the JAX package
+  train     training engine (Trainer), checkpoints, metrics
+  compress  magnitude pruning masks
+  utils     carrying parameters to and from the JAX package
 """
 
 __version__ = "0.1.0"

@@ -31,46 +31,19 @@
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
+using gnn::from_f32;
+using gnn::kWarp;
+using gnn::kWarpsPerBlock;
+using gnn::Side;
+using gnn::to_f32;
+using gnn::warp_sum;
+
 // Register-resident row chunks per lane: widths up to 8 * 32 = 256.
 constexpr int kMaxChunks = 8;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// One CSR direction: segment offsets, gathered endpoint per sorted edge,
-// and where each sorted edge's weight lives in the weight vector (null:
-// the weight vector is already in this plan's order).
-struct Side {
-  const int32_t* seg_ptr;  // [V + 1]
-  const int32_t* oth;      // [E]
-  const int32_t* w_idx;    // [E] or null
-};
 
 // Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_iter_pair_kernel (kScore)
 // and ::_agg_pair_kernel (!kScore).  The TPU kernels turn every gather
@@ -171,9 +144,7 @@ int launch(int n_node, int d, int hdim, const void* h, const float* wvec,
   if (d > kMaxChunks * kWarp || hdim > kMaxChunks * kWarp)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_node > 0) {
-    const long warps = 2L * n_node;
-    const unsigned blocks =
-        static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    const unsigned blocks = gnn::blocks_for_warps(2L * n_node);
     pair_kernel<T, kScore>
         <<<blocks, kWarpsPerBlock * kWarp, 0,
            static_cast<cudaStream_t>(stream)>>>(

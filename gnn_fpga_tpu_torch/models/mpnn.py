@@ -17,7 +17,8 @@ each ``[out, in]``) and are applied as ``w * mask`` inside each matmul.
 
 Routes follow the JAX package's ``aggregation`` selection exactly.  The
 port carries ``"sparse"`` (gather / segment-sum) and ``"pallas"`` (the
-fused CUDA kernels of ``ops/cuda/spmm.py``, which need ``graph.plans``).
+fused CUDA kernels of ``ops/cuda/spmm.py``, forward and backward, which
+need ``graph.plans``).
 Where the JAX package would pick ``"dense"`` or ``"blocked"``, the port
 raises ``NotImplementedError``.
 """
@@ -32,6 +33,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnn_fpga_tpu_torch.core.graph import Graph
 from gnn_fpga_tpu_torch.ops import segment as ops
@@ -57,6 +59,9 @@ class SegmentClassifierConfig:
     # (ops.cuda.spmm.iteration_pair); False runs the edge MLP in PyTorch
     # and aggregates with ops.cuda.spmm.aggregate_pair
     fused_iteration: bool = True
+    # recompute each message-passing iteration in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -193,12 +198,20 @@ def edge_network_logits_proj(params, h, graph: Graph, masks: Masks = None,
                              activation=torch.tanh):
     """:func:`edge_network_logits` in projection form: the first layer is
     applied to the node table before the gather,
-    ``(h @ W1a)[s] + (h @ W1b)[r]``, so no ``[E, 2D]`` tensor exists."""
+    ``(h @ W1a)[s] + (h @ W1b)[r]``, so no ``[E, 2D]`` tensor exists.  With
+    ``graph.plans`` the gather pair runs through
+    :func:`~gnn_fpga_tpu_torch.ops.cuda.spmm.gather_pair`, whose backward
+    is a kernel."""
     pa = F.linear(h, _masked(params["pa"], _mask(masks, "pa")))
     pb = F.linear(h, _masked(params["pb"], _mask(masks, "pb")))
     em = graph.edge_mask.to(h.dtype)[:, None]
-    pre = (ops.gather(pa, graph.senders)
-           + ops.gather(pb, graph.receivers)) * em
+    if graph.plans is not None:
+        from gnn_fpga_tpu_torch.ops.cuda.spmm import gather_pair
+        pre = gather_pair(pa, pb, graph.senders, graph.receivers,
+                          graph.plans) * em
+    else:
+        pre = (ops.gather(pa, graph.senders)
+               + ops.gather(pb, graph.receivers)) * em
     z = activation(pre + params["b1"])
     return _linear(params["l2"], z, _mask(masks, "l2"))[..., 0]
 
@@ -246,6 +259,20 @@ def _fused_iter_body(graph: Graph, x, act, masks_e, masks_n):
         mi, mo = iteration_pair(pa, pb, h, em_sorted, w2, ep["b1"],
                                 ep["l2"]["b"], graph.plans)
         h = node_mlp(np_, mi, mo, h, masks_n, act)
+        return torch.cat([h, x], dim=-1)
+
+    return body
+
+
+def _unfused_iter_body(graph: Graph, x, act, masks_e, masks_n, use_pallas):
+    """One message-passing iteration as separate edge and node networks
+    (``aggregate_pair`` kernel with ``use_pallas``).  Returns
+    ``body(h, ep, np_)``."""
+    edge_logits = edge_network_logits_proj if use_pallas else edge_network_logits
+
+    def body(h, ep, np_):
+        e = torch.sigmoid(edge_logits(ep, h, graph, masks_e, act))
+        h = node_network(np_, h, e, graph, masks_n, act, use_pallas=use_pallas)
         return torch.cat([h, x], dim=-1)
 
     return body
@@ -329,14 +356,14 @@ def segment_classifier_logits(model: SegmentClassifier, graph: Graph,
 
     if use_pallas and cfg.fused_iteration and act is torch.tanh:
         body = _fused_iter_body(graph, x, act, masks_e, masks_n)
-        for _ in range(cfg.n_iters):
-            h = body(h, params["edge"], params["node"])
     else:
-        for _ in range(cfg.n_iters):
-            e = torch.sigmoid(edge_logits(params["edge"], h, graph, masks_e, act))
-            h = node_network(params["node"], h, e, graph, masks_n, act,
-                             use_pallas=use_pallas)
-            h = torch.cat([h, x], dim=-1)
+        body = _unfused_iter_body(graph, x, act, masks_e, masks_n, use_pallas)
+    for _ in range(cfg.n_iters):
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(body, h, params["edge"], params["node"],
+                           use_reentrant=False)
+        else:
+            h = body(h, params["edge"], params["node"])
     return edge_logits(params["edge"], h, graph, masks_e, act).float()
 
 

@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of ``gnn_fpga_tpu_torch/csrc``.
 
 The kernels are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, and loaded
-with ``ctypes``.  The library lands in ``build/gnn_fpga_tpu_torch/`` at
-the root of the checkout, named by a hash of the source and the flags, so
-an edited source is rebuilt.  ``nvcc`` is looked up as PyTorch's own
-C++ extension tooling finds it (``CUDA_HOME``, then ``PATH``); a missing
+(``sm_90a``) into one shared library with a plain C interface, and loaded
+with ``ctypes``.  Every ``csrc/*.cu`` is compiled by its own ``nvcc``
+process, all started together, and the objects are linked once.  The
+library lands in ``build/gnn_fpga_tpu_torch/`` at the root of the
+checkout, named by a hash of every source and header and of the flags, so
+an edited source is rebuilt.  ``nvcc`` is looked up as PyTorch's own C++
+extension tooling finds it (``CUDA_HOME``, then ``PATH``); a missing
 compiler raises.
 """
 
@@ -20,15 +22,19 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "spmm.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "gnn_fpga_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    "gnn_iteration_pair_fwd": [_I, _I, _I, _I] + [_P] * 15,
-    "gnn_aggregate_pair_fwd": [_I, _I, _I] + [_P] * 11,
+    "gnn_iteration_pair_fwd": ([_I] * 4 + [_P] * 15, _I),
+    "gnn_aggregate_pair_fwd": ([_I] * 3 + [_P] * 11, _I),
+    "gnn_iteration_pair_bwd_scratch": ([_I, _I], _L),
+    "gnn_iteration_pair_bwd": ([_I] * 4 + [_P] * 18 + [_L] + [_P] * 4, _I),
+    "gnn_aggregate_pair_bwd": ([_I] * 3 + [_P] * 13, _I),
+    "gnn_gather_pair_bwd": ([_I] * 3 + [_P] * 8, _I),
 }
 
 
@@ -45,35 +51,44 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libgnn_spmm_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libgnn_spmm_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list, what: str):
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) on {what} "
+                               f"{cmd[-1]}:\n{out}")
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build the library if its source changed, load it, declare the
-    C signatures."""
+    """Build the library if a source changed, load it, declare the C
+    signatures."""
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   str(SOURCE)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)   # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            srcs = sorted(CSRC.glob("*.cu"))
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+            _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(srcs, objs)], "source")
+            lib = os.path.join(tmp, path.name)
+            _run([[nvcc, "-shared", "-o", lib, *objs]], "objects")
+            os.replace(lib, path)   # atomic: concurrent builds agree
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib

@@ -1,11 +1,12 @@
-"""Carrying weights across from the JAX package.
+"""Carrying weights across to and from the JAX package.
 
 ``load_params_npz`` reads the parameter NPZ that the JAX package writes
 (``leaf_<i>`` arrays plus a JSON key-path table, or the older keystr
-format) into nested dicts of numpy arrays, with numpy alone.
-``load_jax_params`` fills a :class:`SegmentClassifier` from such a tree,
-and ``load_jax_masks`` converts a JAX pruning-mask tree to the port's
-layout.  JAX stores a weight as ``[in, out]``, ``nn.Linear`` as
+format) into nested dicts of numpy arrays, with numpy alone, and
+``save_params_npz`` writes that format.  ``load_jax_params`` fills a
+:class:`SegmentClassifier` from such a tree, ``to_jax_params`` is its
+inverse, and ``load_jax_masks`` converts a JAX pruning-mask tree to the
+port's layout.  JAX stores a weight as ``[in, out]``, ``nn.Linear`` as
 ``[out, in]``; the JAX edge network's first layer ``[2D, H]`` becomes the
 port's sender/receiver halves ``pa``/``pb``.
 """
@@ -76,6 +77,31 @@ def load_params_npz(path):
     return _fix_sequences(root)
 
 
+def _flatten_with_paths(node, path=()):
+    """``(path, leaf)`` pairs in the JAX package's flattening order: dict
+    keys sorted, sequences in order; a path entry is ``["d", key]`` or
+    ``["s", index]``."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _flatten_with_paths(node[k], path + (["d", k],))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _flatten_with_paths(v, path + (["s", i],))
+    else:
+        yield list(path), np.asarray(node)
+
+
+def save_params_npz(path, params) -> None:
+    """Write a nested dict/list tree of arrays as the JAX package's
+    ``save_params_npz`` does (``leaf_<i>`` arrays plus the JSON key-path
+    table), so that its ``load_params_npz`` reads it."""
+    flat = list(_flatten_with_paths(params))
+    arrays = {f"leaf_{i}": leaf for i, (_, leaf) in enumerate(flat)}
+    spec = [p for p, _ in flat]
+    encoded = np.frombuffer(json.dumps(spec).encode("utf-8"), dtype=np.uint8)
+    np.savez(path, **arrays, **{_PATHS_KEY: encoded})
+
+
 def _f32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 
@@ -114,6 +140,23 @@ def load_jax_params(model, params) -> None:
                 raise ValueError(f"{name}: JAX shape {tuple(src.shape)} "
                                  f"does not fit {tuple(p.shape)}")
             p.copy_(src)
+
+
+def to_jax_params(model) -> dict:
+    """The JAX package's parameter tree of ``model`` as float32 numpy
+    arrays (the inverse of :func:`load_jax_params`): weights ``[in, out]``,
+    ``pa``/``pb`` joined into the edge network's ``[2D, H]`` first layer."""
+    t = {name: p.detach().float().cpu().numpy()
+         for name, p in model.named_parameters()}
+    lin = lambda n: {"w": t[f"{n}.weight"].T.copy(), "b": t[f"{n}.bias"]}
+    return {
+        "input": lin("input"),
+        "edge": {"l1": {"w": np.concatenate([t["edge.pa.weight"].T,
+                                             t["edge.pb.weight"].T]),
+                        "b": t["edge.b1"]},
+                 "l2": lin("edge.l2")},
+        "node": {"l1": lin("node.l1"), "l2": lin("node.l2")},
+    }
 
 
 def load_jax_masks(masks, input_dim: int, hidden_dim: int, device=None):

@@ -26,8 +26,10 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch.ops.cuda import spmm, _build\n"
         "from gnn_fpga_tpu_torch.models import mpnn\n"
         "from gnn_fpga_tpu_torch.utils import serialization\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'gnn_fpga_tpu')]\n"
+        "from gnn_fpga_tpu_torch.train import trainer, checkpoint, metrics\n"
+        "from gnn_fpga_tpu_torch.compress import pruning\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'orbax', 'gnn_fpga_tpu')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
