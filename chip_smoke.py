@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py [--profile PATH]
 
-Drives the SegmentClassifier on the fused-kernel ("pallas") route at the
-full width of the fullevent configuration (hidden 64, 6 iterations, bf16
-compute; 36 Toy2D kNN sectors packed into one graph of 15,848 nodes and
-180,736 edges), serving and training, and checks it:
+Drives the SegmentClassifier at the full width of the fullevent
+configuration (hidden 64, 6 iterations, bf16 compute; 36 Toy2D kNN
+sectors of 440 nodes) on the fused-kernel ("pallas") route, the 36 sectors
+packed into one graph of 15,848 nodes and 180,736 edges, and on the
+blocked and dense routes, the 36 sectors as one batch; serving and
+training; and checks it:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``gnn_fpga_tpu_torch/csrc``;
@@ -19,12 +21,22 @@ compute; 36 Toy2D kNN sectors packed into one graph of 15,848 nodes and
 5. training: parameter gradients on the kernel route (fused and unfused)
    against the ``sparse`` route, then 32 Adam steps of the ``Trainer`` on
    the fused bf16 route over the 8 graphs and one unfused step, with
-   launch counts per step, finite and falling losses, and ms/step.
+   launch counts per step, finite and falling losses, and ms/step;
+6. ops: the single-direction op API (``spmm`` with its backward,
+   ``sddmm``, ``sddmm_dual``, ``sorted_segment_sum`` with its backward) on
+   the packed graph, with launch counts, checked against the plain
+   versions and against the aggregation backward's ``dw``;
+7. blocked: 8 batches of 36 sectors served on the blocked route (bench.py's
+   "blocked b36"), checked against the sparse route sector by sector and
+   against the dense route; parameter gradients of both against the
+   sparse route; 32 Adam steps of the ``Trainer`` on the blocked route;
+   no hand-written kernel launched.
 
 It prints a JSON line of per-kernel results and ends with one JSON line
 ``{"ok": true, "device": {...}}`` when every phase passed; any failure
 exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
-three fused requests and three fused training steps to PATH.
+three fused requests, three fused training steps and one blocked training
+step to PATH.
 """
 
 from __future__ import annotations
@@ -44,8 +56,11 @@ HIDDEN, N_ITERS, INPUT_DIM = 64, 6, 2
 N_REQUESTS = 8
 N_STEPS = 32
 LEARNING_RATE, POS_WEIGHT = 3e-3, 8.0  # bench.py's fullevent TrainConfig
+GROUP, BLOCK_E = 4, 1056              # bench.py's fullevent "blocked b36"
+N_REAL_EDGE = N_SECTORS * (N_LAYERS - 1) * N_TRACKS * K_NN   # 180,576
 SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
-           "bwd": "gnn_fpga_tpu_torch/csrc/spmm_bwd.cu"}
+           "bwd": "gnn_fpga_tpu_torch/csrc/spmm_bwd.cu",
+           "ops": "gnn_fpga_tpu_torch/csrc/spmm_ops.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
 KERNELS = {
     "iteration_pair": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
@@ -53,7 +68,15 @@ KERNELS = {
     "iteration_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
     "aggregate_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:806"),
     "gather_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
+    "spmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
+    "sddmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:496"),
+    "sddmm_dual": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:563"),
+    "sorted_segment_sum": ("ops",
+                           "gnn_fpga_tpu/ops/pallas/segment_sum.py:82"),
 }
+# Kernel outputs that are f32 from T-typed tables ([E] edge values): they
+# take the f32 tolerance whatever T is.
+F32_OUT_SIDES = ("dw", "e")
 
 # Kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|:
 # f32: the plain version sums in another order (atomics) -> the JAX
@@ -85,6 +108,11 @@ BF16_GRAD_REL = 5e-2
 
 def fail(msg: str):
     sys.exit(f"chip_smoke: FAILED: {msg}")
+
+
+def expected_counts(**launched) -> dict:
+    """Launch counts of every kernel wrapper: ``launched``, else 0."""
+    return {name: launched.get(name, 0) for name in KERNELS}
 
 
 def phase_device() -> str:
@@ -153,7 +181,7 @@ def phase_kernels(g) -> dict:
     """Every kernel against its plain version at the main-path shapes, on
     random tables and gradients over the main path's topology (~1% masked
     edges)."""
-    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.ops.cuda import segment_sum, spmm
 
     dev = g.x.device
     gen = torch.Generator().manual_seed(1234)
@@ -162,7 +190,8 @@ def phase_kernels(g) -> dict:
     tabs = dict(pa=rnd(N_NODE, hdim), pb=rnd(N_NODE, hdim), h=rnd(N_NODE, d),
                 w2=rnd(hdim) * 0.25, b1=rnd(hdim), b2=rnd(1),
                 g_mi=rnd(N_NODE, d), g_mo=rnd(N_NODE, d),
-                g=rnd(N_EDGE, hdim))
+                g=rnd(N_EDGE, hdim), m=rnd(N_EDGE, d))
+    ids, seg = segment_ids(g, gen)
     em = (torch.rand(N_EDGE, generator=gen) >= 0.01).float().to(dev)
     em = em * g.edge_mask
     w = torch.rand(N_EDGE, generator=gen).to(dev) * em
@@ -170,10 +199,12 @@ def phase_kernels(g) -> dict:
     em_sorted = spmm.sort_edge_weights(em, recv)
     s, r = g.senders, g.receivers
     print(f"kernels: V={N_NODE} E={N_EDGE} D={d} H={hdim}, "
-          f"{int((em == 0).sum())} masked edges", flush=True)
+          f"{int((em == 0).sum())} masked edges, "
+          f"{int((ids == N_NODE).sum())} dropped segment ids", flush=True)
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         t = {k: v.to(dt) for k, v in tabs.items()}
+        t["m_sorted"] = t["m"].index_select(0, seg.order.long())
         tag = str(dt).replace("torch.", "")
         ip = (t["pa"], t["pb"], t["h"], em_sorted, t["w2"], t["b1"], t["b2"])
         ip_ref = ip + (recv.sorted_oth, recv.sorted_seg, N_NODE)
@@ -202,6 +233,39 @@ def phase_kernels(g) -> dict:
                 lambda: spmm.gather_pair_bwd(t["g"], plans),
                 lambda: spmm.gather_pair_bwd_reference(t["g"], s, r, N_NODE),
                 ("dpa", "dpb")),
+            "spmm": (
+                lambda: (spmm.spmm_raw(t["h"], w, recv),),
+                lambda: (spmm.spmm_reference(t["h"], w, r, s, N_NODE),),
+                ("out",)),
+            # forward and backward: dh through the send plan, dw by sddmm
+            "spmm_vjp": (
+                lambda: spmm_vjp(spmm.spmm, t["h"], w, t["g_mi"], recv,
+                                 plans.send),
+                lambda: spmm_vjp(spmm.spmm_reference, t["h"].float(), w,
+                                 t["g_mi"].float(), r, s, N_NODE),
+                ("dh", "dw")),
+            "sddmm": (
+                lambda: (spmm.sddmm(t["g_mi"], t["h"], recv),),
+                lambda: (spmm.sddmm_reference(t["g_mi"], t["h"], r, s),),
+                ("e",)),
+            "sddmm_dual": (
+                lambda: (spmm.sddmm_dual(t["g_mi"], t["h"], t["g_mo"],
+                                         t["h"], recv),),
+                lambda: (spmm.sddmm_dual_reference(
+                    t["g_mi"], t["h"], t["g_mo"], t["h"], r, s),),
+                ("e",)),
+            "sorted_segment_sum": (
+                lambda: (segment_sum.sorted_segment_sum(
+                    t["m_sorted"], seg, N_NODE),),
+                lambda: (segment_sum.segment_sum_reference(
+                    t["m"], ids, N_NODE),),
+                ("out",)),
+            "sorted_segment_sum_default": (
+                lambda: (segment_sum.sorted_segment_sum(
+                    t["m_sorted"], seg, N_NODE, "default"),),
+                lambda: (segment_sum.segment_sum_reference(
+                    t["m"].bfloat16(), ids, N_NODE),),
+                ("out",)),
         }
         for name, (kern, plain, sides) in runs.items():
             got, ref = kern(), plain()
@@ -211,7 +275,7 @@ def phase_kernels(g) -> dict:
                 rtol, atol = KERNEL_TOL[dt]
                 if side in ("dw2", "db1", "db2"):
                     atol = PARAM_SUM_ATOL[dt] * b.abs().max().item()
-                elif side == "dw":           # f32 output from T inputs
+                elif side in F32_OUT_SIDES:  # f32 output from T inputs
                     rtol, atol = KERNEL_TOL[torch.float32]
                 err = max(err, compare(f"{name} {tag} {side}", a, b, rtol,
                                        atol))
@@ -222,6 +286,33 @@ def phase_kernels(g) -> dict:
                   f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})", flush=True)
             out[(name, dt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     return out
+
+
+def segment_ids(g, gen):
+    """The packed graph's receivers with ~1% of the ids set to ``N_NODE``
+    (padding, dropped by the segment sum), and their sorted segments."""
+    from gnn_fpga_tpu_torch.ops.cuda import segment_sum
+
+    ids = g.receivers.clone()
+    ids[(torch.rand(N_EDGE, generator=gen) < 0.01).to(ids.device)] = N_NODE
+    return ids, segment_sum.build_sorted_segments(ids, N_NODE).to(ids.device)
+
+
+def spmm_vjp(fn, h, w, g_out, *args):
+    """``(dh, dw)`` of ``fn(h, w, *args)`` against ``g_out``."""
+    h = h.detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    return torch.autograd.grad(fn(h, w, *args), (h, w), g_out)
+
+
+def serve(m, g):
+    """Probabilities of ``g`` and the request's ms (host clock, synchronised)."""
+    from gnn_fpga_tpu_torch.models import mpnn
+
+    t = time.perf_counter()
+    p = mpnn.segment_classifier(m, g)
+    torch.cuda.synchronize()
+    return p, (time.perf_counter() - t) * 1e3
 
 
 def variant_of(model, device, **kw):
@@ -249,12 +340,6 @@ def phase_serving(device, graphs, profile_path=None) -> dict:
                             compute_dtype=None)
     fused_f32 = variant_of(model, device, compute_dtype=None)
 
-    def serve(m, g):
-        t = time.perf_counter()
-        p = mpnn.segment_classifier(m, g)
-        torch.cuda.synchronize()
-        return p, (time.perf_counter() - t) * 1e3
-
     print("serving:", flush=True)
     with torch.inference_mode():
         for m in (model, unfused, sparse):       # warm-up, not counted
@@ -266,9 +351,8 @@ def phase_serving(device, graphs, profile_path=None) -> dict:
         launches = spmm.launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
-        expect = dict(iteration_pair=N_REQUESTS * N_ITERS,
-                      aggregate_pair=N_ITERS, iteration_pair_bwd=0,
-                      aggregate_pair_bwd=0, gather_pair_bwd=0)
+        expect = expected_counts(iteration_pair=N_REQUESTS * N_ITERS,
+                                 aggregate_pair=N_ITERS)
         if launches != expect:
             fail(f"serving launched {launches}, expected {expect}")
         sparse_served = [serve(sparse, g) for g in graphs]
@@ -319,17 +403,17 @@ def _grads(model, g):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def check_gradients(model, g, device):
-    """Parameter gradients of the masked BCE on the kernel route, fused
-    and unfused, against the sparse route, in f32 and in bf16."""
+def check_gradients(model, g, device, routes):
+    """Parameter gradients of the masked BCE on each of ``routes`` (label
+    -> config changes of ``model``) against the sparse route, in f32 and
+    in bf16."""
     for dtype in (None, torch.bfloat16):
         tag = "bf16" if dtype else "f32"
         want = _grads(variant_of(model, device, aggregation="sparse",
                                  compute_dtype=dtype), g)
-        for fused in (True, False):
-            got = _grads(variant_of(model, device, compute_dtype=dtype,
-                                    fused_iteration=fused), g)
-            route = "fused" if fused else "unfused"
+        for route, kw in routes.items():
+            got = _grads(variant_of(model, device, compute_dtype=dtype, **kw),
+                         g)
             if dtype is None:
                 for name in want:
                     compare(f"f32 grad {name}, {route} vs sparse",
@@ -360,7 +444,9 @@ def phase_training(device, graphs, profile_path=None) -> dict:
         cfg, torch.Generator().manual_seed(1), device=device)
     tcfg = TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
     print("training: gradients on graph 0", flush=True)
-    check_gradients(model, graphs[0], device)
+    check_gradients(model, graphs[0], device,
+                    {"fused": dict(fused_iteration=True),
+                     "unfused": dict(fused_iteration=False)})
 
     trainer = Trainer(model, tcfg)
     unfused = Trainer(variant_of(model, device, fused_iteration=False), tcfg)
@@ -382,12 +468,12 @@ def phase_training(device, graphs, profile_path=None) -> dict:
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
     print(f"  launches per fused step: {per_step}", flush=True)
     print(f"  launches in the unfused step: {unfused_counts}", flush=True)
-    expect_fused = dict(iteration_pair=N_ITERS, iteration_pair_bwd=N_ITERS,
-                        gather_pair_bwd=1, aggregate_pair=0,
-                        aggregate_pair_bwd=0)
-    expect_unfused = dict(iteration_pair=0, iteration_pair_bwd=0,
-                          gather_pair_bwd=N_ITERS + 1,
-                          aggregate_pair=N_ITERS, aggregate_pair_bwd=N_ITERS)
+    expect_fused = expected_counts(iteration_pair=N_ITERS,
+                                   iteration_pair_bwd=N_ITERS,
+                                   gather_pair_bwd=1)
+    expect_unfused = expected_counts(gather_pair_bwd=N_ITERS + 1,
+                                     aggregate_pair=N_ITERS,
+                                     aggregate_pair_bwd=N_ITERS)
     if per_step != expect_fused:
         fail(f"fused steps launched {per_step} a step, "
              f"expected {expect_fused}")
@@ -412,6 +498,189 @@ def phase_training(device, graphs, profile_path=None) -> dict:
     if profile_path:
         write_profile(profile_path, "a", "3 training steps",
                       lambda: trainer.run_steps(graphs[:3]))
+    return launches
+
+
+def phase_ops(g) -> dict:
+    """The single-direction op API on the packed graph in bf16: the main
+    path of the spmm, sddmm, sddmm_dual and sorted_segment_sum kernels,
+    forward and backward."""
+    from gnn_fpga_tpu_torch.ops.cuda import segment_sum, spmm
+
+    dev = g.x.device
+    gen = torch.Generator().manual_seed(4321)
+    d = HIDDEN + INPUT_DIM
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(
+        dev, torch.bfloat16)
+    h, g_mi, g_mo, msgs = (rnd(N_NODE, d), rnd(N_NODE, d), rnd(N_NODE, d),
+                           rnd(N_EDGE, d))
+    w = torch.rand(N_EDGE, generator=gen).to(dev) * g.edge_mask
+    ids, seg = segment_ids(g, gen)
+    plans = g.plans
+    print("ops: spmm (+ backward), sddmm, sddmm_dual, sorted_segment_sum "
+          "(+ backward), bf16", flush=True)
+    spmm.reset_launch_counts()
+    # --- the main path of the four kernels
+    hq = h.clone().requires_grad_()
+    wq = w.clone().requires_grad_()
+    mi = spmm.spmm(hq, wq, plans.recv, plans.send)
+    mi.backward(g_mi)
+    e = spmm.sddmm(g_mi, h, plans.recv)
+    dw = spmm.sddmm_dual(g_mi, h, g_mo, h, plans.recv)
+    mq = msgs.index_select(0, seg.order.long()).requires_grad_()
+    agg = segment_sum.sorted_segment_sum(mq, seg, N_NODE)
+    agg.backward(g_mi)
+    torch.cuda.synchronize()
+    launches = spmm.launch_counts()
+    # --- checks (not counted)
+    print(f"  launches: {launches}", flush=True)
+    expect = expected_counts(spmm=2, sddmm=2, sddmm_dual=1,
+                             sorted_segment_sum=1)
+    if launches != expect:
+        fail(f"the op API launched {launches}, expected {expect}")
+    for name, t, shape in (("spmm", mi, (N_NODE, d)),
+                           ("spmm dh", hq.grad, (N_NODE, d)),
+                           ("spmm dw", wq.grad, (N_EDGE,)),
+                           ("sddmm", e, (N_EDGE,)),
+                           ("sddmm_dual", dw, (N_EDGE,)),
+                           ("sorted_segment_sum", agg, (N_NODE, d)),
+                           ("sorted_segment_sum grad", mq.grad, (N_EDGE, d))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            fail(f"{name}: malformed output")
+    r, s = g.receivers, g.senders
+    bf16, f32 = KERNEL_TOL[torch.bfloat16], KERNEL_TOL[torch.float32]
+    compare("ops spmm", mi, spmm.spmm_reference(h, w, r, s, N_NODE), *bf16)
+    dh_ref, dw_ref = spmm_vjp(spmm.spmm_reference, h.float(), w,
+                              g_mi.float(), r, s, N_NODE)
+    compare("ops spmm dh", hq.grad, dh_ref, *bf16)
+    compare("ops spmm dw", wq.grad, dw_ref, *f32)
+    compare("ops sddmm", e, spmm.sddmm_reference(g_mi, h, r, s), *f32)
+    _, agg_dw = spmm.aggregate_pair_bwd_reference(h, w, g_mi, g_mo, s, r,
+                                                  N_NODE)
+    compare("ops sddmm_dual vs the aggregation backward's dw", dw, agg_dw,
+            *f32)
+    compare("ops sorted_segment_sum", agg,
+            segment_sum.segment_sum_reference(msgs, ids, N_NODE), *bf16)
+    g_pad = torch.cat([g_mi, g_mi.new_zeros((1, d))])
+    if not torch.equal(mq.grad, g_pad.index_select(0, seg.sorted_ids.long())):
+        fail("sorted_segment_sum's gradient is not the gather of g")
+    return launches
+
+
+def make_sector_batch(seed: int, device):
+    """bench.py's fullevent "blocked b36" batch: 36 Toy2D kNN sectors of
+    seed ``seed`` as one batched graph, edges permuted into blocks of
+    ``GROUP`` layer pairs with ``BLOCK_E`` edge slots."""
+    from gnn_fpga_tpu_torch.data import toy2d
+    from gnn_fpga_tpu_torch.ops import blocked
+
+    cfg = toy2d.Toy2DConfig(n_layers=N_LAYERS, n_tracks=N_TRACKS, seed=seed)
+    gs = toy2d.make_knn_segment_graphs(cfg, N_SECTORS, k=K_NN)
+    return blocked.attach_blocks_layered(gs, toy2d.layer_offsets(cfg),
+                                         group=GROUP,
+                                         block_e=BLOCK_E).to(device)
+
+
+def phase_blocked(device, profile_path=None) -> dict:
+    """The blocked route at full width on the 36-sector batches, checked
+    against the sparse and dense routes, then trained."""
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    batches = [make_sector_batch(seed, device) for seed in range(N_REQUESTS)]
+    plan = batches[0].blocks
+    n_real = int(batches[0].edge_mask.sum().item())
+    print(f"blocked: {N_REQUESTS} batches of {N_SECTORS} sectors built in "
+          f"{time.perf_counter() - t0:.2f} s; x {tuple(batches[0].x.shape)}, "
+          f"edges {tuple(batches[0].senders.shape)} ({n_real} real), "
+          f"blocks {plan.n_blocks} x {plan.block_e} edges x "
+          f"{plan.block_n} nodes", flush=True)
+    if n_real != N_REAL_EDGE or plan.n_blocks != 5 or plan.block_n != 112:
+        fail("the blocked batch does not have bench.py's b36 shape")
+    cfg = mpnn.SegmentClassifierConfig(
+        input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+        compute_dtype=torch.bfloat16, aggregation="blocked")
+    model = mpnn.init_segment_classifier(
+        cfg, torch.Generator().manual_seed(2), device=device)
+    dense = variant_of(model, device, aggregation="dense")
+    sparse = variant_of(model, device, aggregation="sparse")
+    unblocked = [b.replace(blocks=None) for b in batches]
+    spmm.reset_launch_counts()
+    with torch.inference_mode():
+        serve(model, batches[0])                 # warm-up, not counted
+        serve(dense, unblocked[0])
+        # --- serving: 8 batches on the blocked route, then the same
+        # batches without blocks on the dense route
+        served = [serve(model, b) for b in batches]
+        dense_ms = [serve(dense, b)[1] for b in unblocked]
+        # --- checks against the sparse route, sector by sector
+        worst_max = worst_mean = 0.0
+        for i, ((p, _), b) in enumerate(zip(served, unblocked)):
+            if p.shape != b.senders.shape or not torch.isfinite(p).all() \
+                    or p.min() < 0 or p.max() > 1:
+                fail(f"batch {i}: probabilities malformed")
+            real = b.edge_mask > 0
+            diff = (p - serve(sparse, b)[0])[real].abs()
+            worst_max = max(worst_max, diff.max().item())
+            worst_mean = max(worst_mean, diff.mean().item())
+        print(f"  bf16 probs, blocked route vs sparse route (real edges): "
+              f"max|dp|={worst_max:.3e} (tol {BF16_PROB_MAX_ABS:g}) "
+              f"worst mean|dp|={worst_mean:.3e} "
+              f"(tol {BF16_PROB_MEAN_ABS:g})", flush=True)
+        if worst_max > BF16_PROB_MAX_ABS or worst_mean > BF16_PROB_MEAN_ABS:
+            fail("bf16 blocked route disagrees with the sparse route")
+        real = batches[0].edge_mask > 0
+        f32 = {route: mpnn.segment_classifier_logits(
+                   variant_of(model, device, aggregation=route,
+                              compute_dtype=None), batch)[real]
+               for route, batch in (("blocked", batches[0]),
+                                    ("sparse", unblocked[0]),
+                                    ("dense", unblocked[0]))}
+        compare("f32 logits, blocked route vs sparse route (real edges)",
+                f32["blocked"], f32["sparse"], *F32_LOGIT_TOL)
+        compare("f32 logits, dense route vs blocked route (real edges)",
+                f32["dense"], f32["blocked"], *F32_LOGIT_TOL)
+    ms = [t for _, t in served]
+    mean_ms = sum(ms) / len(ms)
+    print(f"  blocked route: {mean_ms:.3f} ms/batch (min {min(ms):.3f}, "
+          f"max {max(ms):.3f}), {N_REAL_EDGE / (mean_ms / 1e3):.4e} "
+          f"edges/s; dense route: {sum(dense_ms) / len(dense_ms):.3f} "
+          f"ms/batch", flush=True)
+
+    print("  gradients on batch 0", flush=True)
+    check_gradients(model, batches[0], device,
+                    {"blocked": {}, "dense": dict(aggregation="dense")})
+    tcfg = TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
+    trainer = Trainer(model, tcfg)
+    Trainer(variant_of(model, device), tcfg).run_steps(batches[:1])  # warm-up
+    losses, step_ms = [], []
+    for i in range(N_STEPS):
+        t = time.perf_counter()
+        losses.append(float(trainer.run_steps([batches[i % N_REQUESTS]])[0]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    print(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"  mean loss, first 8 steps {first:.4f}, last 8 steps {last:.4f}",
+          flush=True)
+    if not torch.isfinite(torch.tensor(losses)).all():
+        fail("a blocked training loss is not finite")
+    if not last < first:
+        fail("the blocked training loss did not fall over 32 steps")
+    mean_ms = sum(step_ms) / len(step_ms)
+    print(f"  blocked bf16 train step: {mean_ms:.3f} ms/step (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
+          f"synchronised by the loss readback), "
+          f"{N_REAL_EDGE / (mean_ms / 1e3):.4e} real edges/s", flush=True)
+    if profile_path:
+        write_profile(profile_path, "a", "1 blocked training step",
+                      lambda: trainer.run_steps(batches[:1]))
+    launches = spmm.launch_counts()
+    print(f"  launches on the blocked and dense routes: {launches}",
+          flush=True)
+    if launches != expected_counts():
+        fail("the blocked or dense route launched a hand-written kernel")
     return launches
 
 
@@ -456,11 +725,12 @@ def main():
     print(f"graphs: {N_REQUESTS} packed graphs built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = phase_kernels(graphs[0])
-    serving = phase_serving(device, graphs, args.profile)
-    training = phase_training(device, graphs, args.profile)
+    paths = (phase_serving(device, graphs, args.profile),
+             phase_training(device, graphs, args.profile),
+             phase_ops(graphs[0]), phase_blocked(device, args.profile))
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
-                 launches=serving[name] + training[name],
+                 launches=sum(path[name] for path in paths),
                  **kernels[(name, torch.bfloat16)])
             for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": rows}))

@@ -38,9 +38,10 @@ class Graph:
     int32, ``y: [E]``, ``node_mask: [N]``, ``edge_mask: [E]``; fields may
     carry one leading batch axis (:func:`batch_graphs`).  ``plans`` holds
     the sorted-edge plans of the CUDA kernels (:func:`attach_plans`, single
-    packed graphs only).  ``blocks`` is the blocked layered plan of the JAX
-    package's ``blocked`` route, which the port does not carry yet; it is
-    kept so that routing follows the JAX package.
+    packed graphs only).  ``blocks`` is the :class:`~gnn_fpga_tpu_torch.ops.
+    blocked.BlockedPlan` of the ``blocked`` route
+    (:func:`~gnn_fpga_tpu_torch.ops.blocked.attach_blocks_layered`), with
+    the same leading batch axis as the edge arrays.
     """
 
     x: torch.Tensor
@@ -181,7 +182,9 @@ def pack_graphs(graphs, n_node: Optional[int] = None,
 
 
 def unbatch_graphs(g: Graph) -> list:
-    """Split a batched Graph (leading batch axis) into single graphs."""
+    """Split a batched Graph (leading batch axis) into single graphs.  The
+    single graphs carry no ``plans`` or ``blocks``: the blocked route takes
+    a batch whole."""
     if g.x.ndim != 3:
         raise ValueError("unbatch_graphs expects a batched Graph [B, N, F]")
     fields = [f.name for f in dataclasses.fields(Graph)
@@ -189,6 +192,27 @@ def unbatch_graphs(g: Graph) -> list:
     return [Graph(**{k: None if getattr(g, k) is None else getattr(g, k)[i]
                      for k in fields})
             for i in range(g.x.shape[0])]
+
+
+def layer_offsets_from_layers(layers,
+                              n_layers: Optional[int] = None) -> np.ndarray:
+    """Per-node detector-layer array (ascending, real nodes only) ->
+    ``layer_offsets`` ``[n_layers + 1]`` for
+    :func:`gnn_fpga_tpu_torch.ops.blocked.attach_blocks_layered`.  Pad
+    nodes past the real ones sit outside every layer range."""
+    layers = _np(layers)
+    if layers.ndim != 1:
+        raise ValueError("layers must be a per-node 1-D array")
+    if np.any(np.diff(layers) < 0):
+        raise ValueError(
+            "nodes must be sorted by layer for the blocked path "
+            "(prepare CLIs sort hits by layer before graph construction)")
+    if n_layers is None:
+        n_layers = int(layers.max()) + 1
+    off = np.searchsorted(layers, np.arange(n_layers + 1),
+                          side="left").astype(np.int64)
+    off[-1] = len(layers)
+    return off
 
 
 def attach_plans(g: Graph) -> Graph:
@@ -203,6 +227,33 @@ def attach_plans(g: Graph) -> Graph:
         raise ValueError("plans only apply to single packed graphs")
     plans = build_agg_plans(_np(g.senders), _np(g.receivers), g.n_node)
     return g.replace(plans=plans.to(g.x.device))
+
+
+# ---------------------------------------------------------------------------
+# Dense incidence-matrix conversion (the reference's interchange format)
+# ---------------------------------------------------------------------------
+
+def to_dense_incidence(g: Graph):
+    """``(X, Ri, Ro, y)`` numpy arrays as in the reference's ``Graph``:
+    ``Ri[receivers[e], e] = Ro[senders[e], e] = 1``; masked edges give
+    all-zero columns."""
+    n, e = g.n_node, g.n_edge
+    ri = np.zeros((n, e), dtype=np.float32)
+    ro = np.zeros((n, e), dtype=np.float32)
+    cols = np.arange(e)[_np(g.edge_mask) > 0]
+    ri[_np(g.receivers)[cols], cols] = 1
+    ro[_np(g.senders)[cols], cols] = 1
+    return _np(g.x), ri, ro, _np(g.y)
+
+
+def from_dense_incidence(x, ri, ro, y, node_y=None) -> Graph:
+    """Inverse of :func:`to_dense_incidence`; all-zero columns become
+    masked edges."""
+    ri, ro = np.asarray(ri), np.asarray(ro)
+    g = from_coo(x, np.argmax(ro, axis=0), np.argmax(ri, axis=0), y,
+                 node_y=node_y)
+    return g.replace(
+        edge_mask=_tensor(ri.sum(axis=0) > 0, np.float32) * g.edge_mask)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@
 // l, l+32, ...), and writes the node's output row once.  Every row is
 // written, zero for nodes without edges, so outputs need no clearing; no
 // atomics are used, so results are identical from run to run.  A score is
-// computed twice, once for each direction.
+// computed twice, once for each direction.  Launched with one side only
+// (n_sides = 1), the unscored kernel is the single-direction aggregation
+// of spmm_ops.cu (gnn::aggregate_one_side).
 //
 // Types: T is float or __nv_bfloat16 for the tables; edge weights are f32;
 // accumulation is f32; outputs are written in T.  tanhf and expf are the
@@ -64,7 +66,7 @@ constexpr int kMaxChunks = 8;
 // 80GB HBM3 at a 700 W power limit (PERF.md).
 template <typename T, bool kScore>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-pair_kernel(int n_node, int d, int hdim,
+pair_kernel(int n_node, int n_sides, int d, int hdim,
             const T* __restrict__ h, const float* __restrict__ wvec,
             const T* __restrict__ pa, const T* __restrict__ pb,
             const T* __restrict__ w2, const T* __restrict__ b1,
@@ -73,7 +75,7 @@ pair_kernel(int n_node, int d, int hdim,
   const int lane = threadIdx.x & (kWarp - 1);
   const long gw = static_cast<long>(blockIdx.x) * kWarpsPerBlock +
                   (threadIdx.x / kWarp);
-  if (gw >= 2L * n_node) return;
+  if (gw >= static_cast<long>(n_sides) * n_node) return;
   // Warps [0, V) aggregate by receiver (mi), warps [V, 2V) by sender (mo).
   const bool by_send = gw >= n_node;
   const int n = static_cast<int>(by_send ? gw - n_node : gw);
@@ -137,18 +139,19 @@ pair_kernel(int n_node, int d, int hdim,
 }
 
 template <typename T, bool kScore>
-int launch(int n_node, int d, int hdim, const void* h, const float* wvec,
-           const void* pa, const void* pb, const void* w2, const void* b1,
-           const void* b2, Side recv, Side send, void* mi, void* mo,
-           void* stream) {
+int launch(int n_node, int n_sides, int d, int hdim, const void* h,
+           const float* wvec, const void* pa, const void* pb, const void* w2,
+           const void* b1, const void* b2, Side recv, Side send, void* mi,
+           void* mo, void* stream) {
   if (d > kMaxChunks * kWarp || hdim > kMaxChunks * kWarp)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_node > 0) {
-    const unsigned blocks = gnn::blocks_for_warps(2L * n_node);
+    const unsigned blocks =
+        gnn::blocks_for_warps(static_cast<long>(n_sides) * n_node);
     pair_kernel<T, kScore>
         <<<blocks, kWarpsPerBlock * kWarp, 0,
            static_cast<cudaStream_t>(stream)>>>(
-            n_node, d, hdim, static_cast<const T*>(h), wvec,
+            n_node, n_sides, d, hdim, static_cast<const T*>(h), wvec,
             static_cast<const T*>(pa), static_cast<const T*>(pb),
             static_cast<const T*>(w2), static_cast<const T*>(b1),
             static_cast<const T*>(b2), recv, send, static_cast<T*>(mi),
@@ -158,6 +161,23 @@ int launch(int n_node, int d, int hdim, const void* h, const float* wvec,
 }
 
 }  // namespace
+
+namespace gnn {
+
+int aggregate_one_side(int dtype, int n_node, int d, const void* h,
+                       const float* w, Side side, void* out, void* stream) {
+  if (dtype == 0)
+    return launch<float, false>(n_node, 1, d, 0, h, w, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, side, side, out,
+                                nullptr, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false>(n_node, 1, d, 0, h, w, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr,
+                                        side, side, out, nullptr, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace gnn
 
 extern "C" {
 
@@ -174,10 +194,10 @@ int gnn_iteration_pair_fwd(int dtype, int n_node, int d, int hdim,
   const Side recv{recv_ptr, recv_oth, nullptr};
   const Side send{send_ptr, send_oth, send_em_idx};
   if (dtype == 0)
-    return launch<float, true>(n_node, d, hdim, h, em, pa, pb, w2, b1, b2,
+    return launch<float, true>(n_node, 2, d, hdim, h, em, pa, pb, w2, b1, b2,
                                recv, send, mi, mo, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(n_node, d, hdim, h, em, pa, pb, w2,
+    return launch<__nv_bfloat16, true>(n_node, 2, d, hdim, h, em, pa, pb, w2,
                                        b1, b2, recv, send, mi, mo, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -194,11 +214,11 @@ int gnn_aggregate_pair_fwd(int dtype, int n_node, int d, const void* h,
   const Side recv{recv_ptr, recv_oth, recv_order};
   const Side send{send_ptr, send_oth, send_order};
   if (dtype == 0)
-    return launch<float, false>(n_node, d, 0, h, w, nullptr, nullptr,
+    return launch<float, false>(n_node, 2, d, 0, h, w, nullptr, nullptr,
                                 nullptr, nullptr, nullptr, recv, send, mi,
                                 mo, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(n_node, d, 0, h, w, nullptr,
+    return launch<__nv_bfloat16, false>(n_node, 2, d, 0, h, w, nullptr,
                                         nullptr, nullptr, nullptr, nullptr,
                                         recv, send, mi, mo, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -30,35 +30,18 @@
 
 namespace {
 
+using gnn::dispatch;
 using gnn::from_f32;
+using gnn::kThreads;
 using gnn::kWarp;
 using gnn::kWarpsPerBlock;
+using gnn::load_row;
 using gnn::Side;
+using gnn::store_row;
 using gnn::to_f32;
 using gnn::warp_sum;
 
-constexpr int kThreads = kWarpsPerBlock * kWarp;
 constexpr int kReduceThreads = 256;
-
-template <int kC, typename T>
-__device__ __forceinline__ void load_row(float (&dst)[kC], const T* row,
-                                         int width, int lane) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int k = c * kWarp + lane;
-    dst[c] = k < width ? to_f32(row[k]) : 0.f;
-  }
-}
-
-template <int kC, typename T>
-__device__ __forceinline__ void store_row(T* row, const float (&src)[kC],
-                                          int width, int lane) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int k = c * kWarp + lane;
-    if (k < width) row[k] = from_f32<T>(src[c]);
-  }
-}
 
 // Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_iter_pair_bwd_kernel, the
 // VJP of the fused iteration (dh, dpa, dpb, dw2, db1, db2), recomputing
@@ -340,37 +323,6 @@ gather_bwd_kernel(int n_node, int hdim, const T* __restrict__ g,
     }
   }
   store_row<kC>((by_send ? dpa : dpb) + n * hdim, acc, hdim, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Host side: pick T from the dtype code and kC from the widest row.
-// ---------------------------------------------------------------------------
-
-template <typename T, int kC>
-struct Variant {
-  using type = T;
-  static constexpr int chunks = kC;
-};
-
-// Calls launch(Variant<T, kC>{}) for dtype (0 = float32, 1 = bfloat16) and
-// rows of up to `width` columns (at most 256).
-template <typename Launch>
-int dispatch(int dtype, int width, Launch launch) {
-  if (width < 0 || width > 8 * kWarp || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int c = (width + kWarp - 1) / kWarp;
-  if (dtype == 0) {
-    if (c <= 1) return launch(Variant<float, 1>{});
-    if (c == 2) return launch(Variant<float, 2>{});
-    if (c == 3) return launch(Variant<float, 3>{});
-    if (c == 4) return launch(Variant<float, 4>{});
-    return launch(Variant<float, 8>{});
-  }
-  if (c <= 1) return launch(Variant<__nv_bfloat16, 1>{});
-  if (c == 2) return launch(Variant<__nv_bfloat16, 2>{});
-  if (c == 3) return launch(Variant<__nv_bfloat16, 3>{});
-  if (c == 4) return launch(Variant<__nv_bfloat16, 4>{});
-  return launch(Variant<__nv_bfloat16, 8>{});
 }
 
 }  // namespace

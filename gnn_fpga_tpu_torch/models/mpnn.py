@@ -7,7 +7,8 @@ message-passing iterations.  ``forward`` runs
     input MLP -> [H, X] -> n_iters x (edge net -> node net -> [H, X])
     -> final edge net
 
-on a single COO :class:`~gnn_fpga_tpu_torch.core.graph.Graph`.
+on a COO :class:`~gnn_fpga_tpu_torch.core.graph.Graph`, single or batched
+(leading batch axis, as the JAX package ``vmap``s its forward).
 
 The module stores the first edge layer ``[2D, H]`` as its sender and
 receiver halves ``pa``/``pb`` (``cat([h[s], h[r]]) @ W1 == (h @ W1a)[s] +
@@ -15,12 +16,14 @@ receiver halves ``pa``/``pb`` (``cat([h[s], h[r]]) @ W1 == (h @ W1a)[s] +
 like the submodules (``{"edge": {"pa", "pb", "l2"}, "node": {"l1", "l2"}}``,
 each ``[out, in]``) and are applied as ``w * mask`` inside each matmul.
 
-Routes follow the JAX package's ``aggregation`` selection exactly.  The
-port carries ``"sparse"`` (gather / segment-sum) and ``"pallas"`` (the
-fused CUDA kernels of ``ops/cuda/spmm.py``, forward and backward, which
-need ``graph.plans``).
-Where the JAX package would pick ``"dense"`` or ``"blocked"``, the port
-raises ``NotImplementedError``.
+Routes follow the JAX package's ``aggregation`` selection exactly:
+``"blocked"`` (per-layer-pair one-hot matmuls, ``ops/blocked.py``, needs
+``graph.blocks``), ``"dense"`` (one-hot incidence matmuls,
+``ops/dense_incidence.py``), ``"pallas"`` (the fused CUDA kernels of
+``ops/cuda/spmm.py``, forward and backward, which need ``graph.plans``)
+and ``"sparse"`` (gather / segment-sum).  The blocked and dense routes
+take a batch whole, folded into the batch of their matmuls; the sparse and
+pallas routes score a batch graph by graph.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from gnn_fpga_tpu_torch.core.graph import Graph
+from gnn_fpga_tpu_torch.core.graph import Graph, unbatch_graphs
+from gnn_fpga_tpu_torch.ops import blocked as blk
+from gnn_fpga_tpu_torch.ops import dense_incidence as dinc
 from gnn_fpga_tpu_torch.ops import segment as ops
 
 Masks = Optional[dict]   # {"edge": {...}, "node": {...}} of [out, in] masks
@@ -53,7 +58,9 @@ class SegmentClassifierConfig:
     # when set, params and features are cast to it for the forward pass;
     # logits return in f32
     compute_dtype: Optional[torch.dtype] = None
-    # "sparse" | "pallas" | "auto"; "dense"/"blocked" are not ported yet
+    # "sparse" | "dense" | "blocked" | "pallas" | "auto" (blocked if
+    # graph.blocks, else pallas if graph.plans, else dense iff one graph's
+    # n_node * n_edge is at most _DENSE_AUTO_LIMIT, else sparse)
     aggregation: str = "auto"
     # on the pallas route with tanh: one fused kernel per iteration
     # (ops.cuda.spmm.iteration_pair); False runs the edge MLP in PyTorch
@@ -183,15 +190,27 @@ def _mask(masks, name):
 # Edge / node networks
 # ---------------------------------------------------------------------------
 
+def _edge_mlp(params, b, masks: Masks, activation):
+    """The edge MLP on endpoint features ``b = [bo, bi]``: Linear -> act ->
+    Linear."""
+    w1 = torch.cat([_masked(params["pa"], _mask(masks, "pa")),
+                    _masked(params["pb"], _mask(masks, "pb"))], dim=1)
+    z = activation(F.linear(b, w1, params["b1"]))
+    return _linear(params["l2"], z, _mask(masks, "l2"))[..., 0]
+
+
 def edge_network_logits(params, h, graph: Graph, masks: Masks = None,
                         activation=torch.tanh):
     """Edge logits from ``[h[senders], h[receivers]]`` -> Linear -> act ->
     Linear (masked edges' inputs are zero)."""
     b = ops.edge_concat(h, graph.senders, graph.receivers, graph.edge_mask)
-    w1 = torch.cat([_masked(params["pa"], _mask(masks, "pa")),
-                    _masked(params["pb"], _mask(masks, "pb"))], dim=1)
-    z = activation(F.linear(b, w1, params["b1"]))
-    return _linear(params["l2"], z, _mask(masks, "l2"))[..., 0]
+    return _edge_mlp(params, b, masks, activation)
+
+
+def _dense_edge_logits(params, bo, bi, masks: Masks, activation):
+    """The edge MLP on the endpoint features of the dense and blocked
+    routes."""
+    return _edge_mlp(params, torch.cat([bo, bi], dim=-1), masks, activation)
 
 
 def edge_network_logits_proj(params, h, graph: Graph, masks: Masks = None,
@@ -325,34 +344,117 @@ def _use_blocked(cfg, graph: Graph) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Dense and blocked routes (one-hot matmuls; a batch runs whole)
+# ---------------------------------------------------------------------------
+
+def _input_layer(params, x, act):
+    return torch.cat([act(_linear(params["input"], x)), x], dim=-1)
+
+
+def _dense_prelude(model, graph: Graph, cfg, act):
+    """Cast parameters and features, build the incidence matrices in the
+    compute dtype, run the input MLP."""
+    n_node = graph.x.shape[-2]
+    params, x = _cast_for_compute(model, graph.x, cfg.compute_dtype)
+    ri = dinc.incidence(graph.receivers, n_node, graph.edge_mask, x.dtype)
+    ro = dinc.incidence(graph.senders, n_node, graph.edge_mask, x.dtype)
+    return params, x, ri, ro, _input_layer(params, x, act)
+
+
+def _dense_mp_body(ri, ro, x, masks_e, masks_n, act):
+    """One message-passing iteration with one-hot incidence matmuls; the
+    endpoint features ``bo``/``bi`` feed both the edge scorer and the
+    aggregation.  Returns ``body(h, ep, np_)``."""
+
+    def body(h, ep, np_):
+        bo = dinc.gather_bmm(ro, h)
+        bi = dinc.gather_bmm(ri, h)
+        e = torch.sigmoid(_dense_edge_logits(ep, bo, bi, masks_e, act))
+        mi = dinc.scatter_bmm(ri, bo, e)
+        mo = dinc.scatter_bmm(ro, bi, e)
+        return torch.cat([node_mlp(np_, mi, mo, h, masks_n, act), x], dim=-1)
+
+    return body
+
+
+def _dense_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act):
+    """SegmentClassifier forward on the dense incidence route."""
+    params, x, ri, ro, h = _dense_prelude(model, graph, cfg, act)
+    body = _dense_mp_body(ri, ro, x, masks_e, masks_n, act)
+    for _ in range(cfg.n_iters):
+        h = body(h, params["edge"], params["node"])
+    logits = _dense_edge_logits(params["edge"], dinc.gather_bmm(ro, h),
+                                dinc.gather_bmm(ri, h), masks_e, act)
+    return logits.float()
+
+
+def _blocked_prelude(model, graph: Graph, cfg, act):
+    """Cast parameters and features, build the block broadcast matrix and
+    the local incidence one-hots in the compute dtype, run the input MLP."""
+    plan = graph.blocks
+    params, x = _cast_for_compute(model, graph.x, cfg.compute_dtype)
+    g = blk.broadcast_matrix(plan, graph.x.shape[-2], x.dtype)
+    ri, ro = blk.local_incidence(plan, graph.edge_mask, x.dtype)
+    return params, x, g, ri, ro, plan.n_blocks, _input_layer(params, x, act)
+
+
+def _blocked_mp_body(g, ri, ro, x, masks_e, masks_n, act, n_blocks):
+    """One message-passing iteration in block layout: the dense body's
+    contraction restricted to the incidence's non-zero blocks.  Returns
+    ``body(h, ep, np_)``."""
+
+    def body(h, ep, np_):
+        hb = blk.gather_blocks(g, h, n_blocks)
+        bo = blk.gather_bmm(ro, hb)
+        bi = blk.gather_bmm(ri, hb)
+        e = torch.sigmoid(_dense_edge_logits(ep, bo, bi, masks_e, act))
+        mi = blk.reduce_blocks(g, blk.scatter_bmm(ri, bo, e))
+        mo = blk.reduce_blocks(g, blk.scatter_bmm(ro, bi, e))
+        return torch.cat([node_mlp(np_, mi, mo, h, masks_n, act), x], dim=-1)
+
+    return body
+
+
+def _blocked_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act):
+    """SegmentClassifier forward on the blocked route.  Logits come out in
+    block order, which is the graph's edge order after
+    :func:`~gnn_fpga_tpu_torch.ops.blocked.attach_blocks_layered`."""
+    params, x, g, ri, ro, nb, h = _blocked_prelude(model, graph, cfg, act)
+    body = _blocked_mp_body(g, ri, ro, x, masks_e, masks_n, act, nb)
+    for _ in range(cfg.n_iters):
+        h = body(h, params["edge"], params["node"])
+    hb = blk.gather_blocks(g, h, nb)
+    logits = _dense_edge_logits(params["edge"], blk.gather_bmm(ro, hb),
+                                blk.gather_bmm(ri, hb), masks_e, act)
+    return logits.flatten(-2).float()
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 def segment_classifier_logits(model: SegmentClassifier, graph: Graph,
                               masks: Masks = None) -> torch.Tensor:
-    """Final edge logits (f32) of a single graph, on the route that
-    ``model.cfg.aggregation`` selects for it."""
+    """Final edge logits (f32), ``[E]`` for a single graph and ``[B, E]``
+    for a batched one, on the route that ``model.cfg.aggregation`` selects
+    for it (in the JAX package's order: blocked, dense, pallas, sparse)."""
     cfg = model.cfg
     act = cfg.activation
-    if graph.x.ndim != 2:
-        raise ValueError("segment_classifier_logits takes a single graph; "
-                         "pack batches with core.graph.pack_graphs")
-    if _use_blocked(cfg, graph):
-        raise NotImplementedError(
-            "the blocked layered route is not ported yet "
-            "(ROADMAP Queue 1, 'Blocked layered route')")
-    if _use_dense(cfg, graph):
-        raise NotImplementedError(
-            "the dense incidence route is not ported yet (ROADMAP Queue 1, "
-            "'Sparse and dense ops'); attach plans or pass "
-            "aggregation='sparse'")
     masks_e = _mask(masks, "edge")
     masks_n = _mask(masks, "node")
+    if graph.x.ndim not in (2, 3):
+        raise ValueError("expected a graph [V, F] or a batch [B, V, F]")
+    if _use_blocked(cfg, graph):
+        return _blocked_mp_logits(model, graph, cfg, masks_e, masks_n, act)
+    if _use_dense(cfg, graph):
+        return _dense_mp_logits(model, graph, cfg, masks_e, masks_n, act)
+    if graph.x.ndim == 3:
+        return torch.stack([segment_classifier_logits(model, g, masks)
+                            for g in unbatch_graphs(graph)])
     use_pallas = _use_pallas(cfg, graph)
     edge_logits = edge_network_logits_proj if use_pallas else edge_network_logits
     params, x = _cast_for_compute(model, graph.x, cfg.compute_dtype)
-    h = act(_linear(params["input"], x))
-    h = torch.cat([h, x], dim=-1)
+    h = _input_layer(params, x, act)
 
     if use_pallas and cfg.fused_iteration and act is torch.tanh:
         body = _fused_iter_body(graph, x, act, masks_e, masks_n)
@@ -371,3 +473,26 @@ def segment_classifier(model: SegmentClassifier, graph: Graph,
                        masks: Masks = None) -> torch.Tensor:
     """Edge probabilities: the sigmoid of the logits."""
     return torch.sigmoid(segment_classifier_logits(model, graph, masks))
+
+
+def segment_classifier_intermediates(model: SegmentClassifier, graph: Graph,
+                                     masks: Masks = None):
+    """Forward of a single graph on the sparse route, in the parameters'
+    dtype, that also returns each iteration's activations:
+    ``(probabilities, es, hs)`` with the ``n_iters`` edge scores ``[E]`` and
+    the ``n_iters + 1`` node tables ``[V, H + F]``."""
+    act = model.cfg.activation
+    masks_e = _mask(masks, "edge")
+    masks_n = _mask(masks, "node")
+    params, x = _cast_for_compute(model, graph.x, None)
+    h = _input_layer(params, x, act)
+    es, hs = [], [h]
+    for _ in range(model.cfg.n_iters):
+        e = torch.sigmoid(edge_network_logits(params["edge"], h, graph,
+                                              masks_e, act))
+        h = torch.cat([node_network(params["node"], h, e, graph, masks_n,
+                                    act), x], dim=-1)
+        es.append(e)
+        hs.append(h)
+    logits = edge_network_logits(params["edge"], h, graph, masks_e, act)
+    return torch.sigmoid(logits), es, hs

@@ -21,6 +21,11 @@ Each is a ``torch.autograd.Function`` whose backward is a kernel too
 save only the V-sized inputs and recompute per-edge values, as the JAX
 package's VJPs do.
 
+The single-direction API runs on ``csrc/spmm_ops.cu``: :func:`spmm_raw`
+(one direction of the aggregation over one plan), :func:`spmm` (with its
+VJP, ``dh`` through the transpose plan and ``dw`` through :func:`sddmm`),
+:func:`sddmm` (``out[e] = <a[seg], b[oth]>``) and :func:`sddmm_dual`.
+
 The plans keep the JAX package's receiver-sorted and sender-sorted edge
 orders, from a stable argsort, and add CSR row pointers, so each node's
 row is reduced by one warp without atomics.  The TPU's gather windows,
@@ -208,6 +213,24 @@ def gather_pair_bwd_reference(g, senders, receivers, n_node):
     return segment_sum(g, senders, n_node), segment_sum(g, receivers, n_node)
 
 
+def spmm_reference(h, w, seg_ids, oth_ids, n_node):
+    """``out[n] = sum_{seg[e]==n} w[e] * h[oth[e]]`` in f32."""
+    return segment_sum(h.float().index_select(0, oth_ids) * w.float()[:, None],
+                       seg_ids, n_node)
+
+
+def sddmm_reference(a, b, seg_ids, oth_ids):
+    """``out[e] = <a[seg[e]], b[oth[e]]>`` in f32."""
+    return (a.float().index_select(0, seg_ids)
+            * b.float().index_select(0, oth_ids)).sum(1)
+
+
+def sddmm_dual_reference(p, q, u, v, seg_ids, oth_ids):
+    """``out[e] = <p[seg[e]], q[oth[e]]> + <u[oth[e]], v[seg[e]]>`` in f32."""
+    return (sddmm_reference(p, q, seg_ids, oth_ids)
+            + sddmm_reference(v, u, seg_ids, oth_ids))
+
+
 # ---------------------------------------------------------------------------
 # Checks and launch plumbing
 # ---------------------------------------------------------------------------
@@ -223,17 +246,20 @@ def _check_cuda(device, dtype, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_plan(name, plan: EdgePlan, device, n_node: int):
+    if plan.n_node != n_node:
+        raise ValueError(f"{name}: plan is for {plan.n_node} nodes, tables "
+                         f"for {n_node}")
+    _check_cuda(device, torch.int32, seg_ptr=plan.seg_ptr,
+                sorted_oth=plan.sorted_oth, order=plan.order)
+
+
 def _check_plans(plans: AggPlans, device, n_node: int):
-    for plan in (plans.recv, plans.send):
-        if plan.n_node != n_node or plan.n_edge != plans.recv.n_edge:
-            raise ValueError(
-                f"plans are for ({plan.n_node}, {plan.n_edge}) nodes/edges, "
-                f"tables for {n_node} nodes")
-    r, s = plans.recv, plans.send
-    _check_cuda(device, torch.int32, recv_seg_ptr=r.seg_ptr,
-                recv_sorted_oth=r.sorted_oth, recv_order=r.order,
-                send_seg_ptr=s.seg_ptr, send_sorted_oth=s.sorted_oth,
-                send_order=s.order, send_in_recv=plans.send_in_recv)
+    if plans.send.n_edge != plans.recv.n_edge:
+        raise ValueError("recv and send plans differ in their edge count")
+    _check_plan("recv plan", plans.recv, device, n_node)
+    _check_plan("send plan", plans.send, device, n_node)
+    _check_cuda(device, torch.int32, send_in_recv=plans.send_in_recv)
 
 
 def _kernel_device(h, name):
@@ -437,6 +463,75 @@ def gather_pair_bwd(g, plans: AggPlans):
     return dpa, dpb
 
 
+def spmm_raw(h, w, plan: EdgePlan):
+    """``out[n] = sum_{e: seg[e]==n} w[e] * h[oth[e]]`` in one kernel
+    launch, no VJP attached.  ``h``: [V, D]; ``w``: [E] edge weights in
+    EDGE order (read through the plan's ``order``).  Returns [V, D] in
+    ``h.dtype``."""
+    w = w.float()
+    dev = _kernel_device(h, "spmm")
+    if dev is None:
+        return spmm_reference(h, sort_edge_weights(w, plan), plan.sorted_seg,
+                              plan.sorted_oth, plan.n_node).to(h.dtype)
+    v, d = h.shape
+    if w.shape != (plan.n_edge,):
+        raise ValueError("spmm: w must be [E]")
+    _check_widths("spmm", d)
+    _check_cuda(dev, h.dtype, h=h)
+    _check_cuda(dev, torch.float32, w=w)
+    _check_plan("spmm", plan, dev, v)
+    out = torch.empty_like(h)
+    code = _lib().gnn_spmm(
+        _DTYPE_CODES[h.dtype], v, d, _ptr(h), _ptr(w), _ptr(plan.seg_ptr),
+        _ptr(plan.sorted_oth), _ptr(plan.order), _ptr(out), _stream(h))
+    _raise_on_error(code, "gnn_spmm")
+    spmm.launches += 1
+    return out
+
+
+def _sddmm(name, plan: EdgePlan, a, b, u=None, v=None):
+    """:func:`sddmm`, or :func:`sddmm_dual` with ``u`` and ``v``."""
+    wrapper = sddmm if u is None else sddmm_dual
+    dev = _kernel_device(a, name)
+    if dev is None:
+        out = sddmm_reference(a, b, plan.sorted_seg, plan.sorted_oth)
+        if u is not None:
+            out = out + sddmm_reference(v, u, plan.sorted_seg,
+                                        plan.sorted_oth)
+        return out.index_select(0, plan.inv_order)
+    tabs = dict(a=a, b=b) if u is None else dict(p=a, q=b, u=u, v=v)
+    n, d = a.shape
+    if any(t.shape != (n, d) for t in tabs.values()):
+        raise ValueError(f"{name}: the tables must all be [V, D]")
+    _check_widths(name, d)
+    _check_cuda(dev, a.dtype, **tabs)
+    _check_plan(name, plan, dev, n)
+    out = torch.empty(plan.n_edge, dtype=torch.float32, device=dev)
+    code = _lib().gnn_sddmm(
+        _DTYPE_CODES[a.dtype], n, d, _ptr(a), _ptr(b),
+        None if u is None else _ptr(u), None if v is None else _ptr(v),
+        _ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order),
+        _ptr(out), _stream(a))
+    _raise_on_error(code, "gnn_sddmm")
+    wrapper.launches += 1
+    return out
+
+
+def sddmm(a, b, plan: EdgePlan):
+    """Sampled dense-dense product ``out[e] = <a[seg[e]], b[oth[e]]>`` in
+    one kernel launch.  ``a``/``b``: [V, D].  Returns [E] f32 in EDGE
+    order; it is the gradient of :func:`spmm_raw` with respect to ``w``."""
+    return _sddmm("sddmm", plan, a, b)
+
+
+def sddmm_dual(p, q, u, v, plan: EdgePlan):
+    """``out[e] = <p[seg[e]], q[oth[e]]> + <u[oth[e]], v[seg[e]]>`` in one
+    kernel launch: with the recv plan, ``sddmm_dual(g_mi, h, g_mo, h,
+    recv)`` is the ``dw`` of :func:`aggregate_pair`.  Four [V, D] tables;
+    returns [E] f32 in EDGE order."""
+    return _sddmm("sddmm_dual", plan, p, q, u, v)
+
+
 # ---------------------------------------------------------------------------
 # Autograd Functions: the kernels forward and backward
 # ---------------------------------------------------------------------------
@@ -491,6 +586,21 @@ class _GatherPair(torch.autograd.Function):
         return dpa, dpb.to(ctx.dtypes[1]), None, None, None
 
 
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, plan, plan_t):
+        ctx.plans = plan, plan_t
+        ctx.save_for_backward(h, w)
+        return spmm_raw(h, w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        plan, plan_t = ctx.plans
+        g = _grad_as(g, h.dtype)
+        return spmm_raw(g, w, plan_t), sddmm(g, h, plan), None, None
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -540,21 +650,43 @@ def gather_pair(pa, pb, senders, receivers, plans: AggPlans):
     return _GatherPair.apply(pa, pb, senders, receivers, plans)
 
 
+def spmm(h, w, plan: EdgePlan, plan_t: EdgePlan):
+    """Single-direction differentiable SpMM, :func:`spmm_raw` over
+    ``plan``; ``plan_t`` is its transpose (for a graph's
+    :class:`AggPlans`, ``(plans.recv, plans.send)`` or the reverse).  The
+    backward is ``dh = spmm_raw(g, w, plan_t)`` and ``dw = sddmm(g, h,
+    plan)``, each one kernel launch."""
+    if plan_t.n_node != plan.n_node or plan_t.n_edge != plan.n_edge:
+        raise ValueError("spmm: plan_t must be the transpose of plan")
+    w = w.float()
+    return _Spmm.apply(h, w, plan, plan_t)
+
+
 iteration_pair.launches = 0
 aggregate_pair.launches = 0
 iteration_pair_bwd.launches = 0
 aggregate_pair_bwd.launches = 0
 gather_pair_bwd.launches = 0
+spmm.launches = 0
+sddmm.launches = 0
+sddmm_dual.launches = 0
 
-_KERNEL_WRAPPERS = (iteration_pair, aggregate_pair, iteration_pair_bwd,
-                    aggregate_pair_bwd, gather_pair_bwd)
+
+def _kernel_wrappers() -> tuple:
+    from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
+
+    return (iteration_pair, aggregate_pair, iteration_pair_bwd,
+            aggregate_pair_bwd, gather_pair_bwd, spmm, sddmm, sddmm_dual,
+            sorted_segment_sum)
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset, by name."""
-    return {f.__name__: f.launches for f in _KERNEL_WRAPPERS}
+    """Kernel launches per wrapper since the last reset, by name: the
+    wrappers of this module and :func:`~gnn_fpga_tpu_torch.ops.cuda.
+    segment_sum.sorted_segment_sum`."""
+    return {f.__name__: f.launches for f in _kernel_wrappers()}
 
 
 def reset_launch_counts():
-    for f in _KERNEL_WRAPPERS:
+    for f in _kernel_wrappers():
         f.launches = 0

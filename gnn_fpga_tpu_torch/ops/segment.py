@@ -37,6 +37,15 @@ def weighted_segment_sum(messages: torch.Tensor, weights: torch.Tensor,
     return segment_sum(messages * weights[:, None], idx, n_node)
 
 
+def segment_mean(messages: torch.Tensor, idx: torch.Tensor, n_node: int,
+                 eps: float = 1e-9) -> torch.Tensor:
+    """Mean of each segment's messages (zero for an empty segment)."""
+    totals = segment_sum(messages, idx, n_node)
+    counts = segment_sum(messages.new_ones((messages.shape[0], 1)), idx,
+                         n_node)
+    return totals / counts.clamp_min(eps)
+
+
 def edge_concat(x: torch.Tensor, senders: torch.Tensor,
                 receivers: torch.Tensor,
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -31,7 +31,7 @@ from torch import nn
 
 from gnn_fpga_tpu_torch.compress.pruning import (apply_masks_to_params,
                                                  weight_matrices)
-from gnn_fpga_tpu_torch.core.graph import Graph, unbatch_graphs
+from gnn_fpga_tpu_torch.core.graph import Graph
 from gnn_fpga_tpu_torch.train import metrics as metrics_lib
 from gnn_fpga_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -122,7 +122,8 @@ def _masks_to(masks, device):
 
 class Trainer:
     """Training engine around a model ``model(graph, masks) -> logits``
-    (edge logits ``[E]`` or node logits ``[N]`` per ``cfg.target``).
+    (edge logits ``[E]`` or node logits ``[N]`` per ``cfg.target``, with a
+    leading batch axis for a batched graph).
 
     Args:
       model: the ``nn.Module``; it is trained in place.
@@ -168,11 +169,9 @@ class Trainer:
         return graph.node_y, (graph.node_mask if self.cfg.loss_masking else None)
 
     def _logits(self, graph: Graph) -> torch.Tensor:
-        """Logits of a single graph, or stacked per graph of a batched one
-        (leading batch axis)."""
-        if graph.x.ndim == 3:
-            return torch.stack([self.model(g, self.masks)
-                                for g in unbatch_graphs(graph)])
+        """Logits of a single graph, or ``[B, ...]`` of a batched one
+        (leading batch axis), which the model takes whole: the blocked and
+        dense routes fold the batch into their matmuls."""
         return self.model(graph, self.masks)
 
     def _loss(self, graph: Graph) -> torch.Tensor:

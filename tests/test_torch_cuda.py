@@ -15,6 +15,7 @@ import torch
 
 from gnn_fpga_tpu_torch.core import graph as tg
 from gnn_fpga_tpu_torch.models import mpnn as tm
+from gnn_fpga_tpu_torch.ops.cuda import segment_sum as tss
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
 
 pytestmark = pytest.mark.cuda
@@ -205,3 +206,99 @@ def test_model_gradients_on_kernel_route_match_sparse_route(dev, fused):
     for (name, a), b in zip(model.named_parameters(), sparse.parameters()):
         torch.testing.assert_close(a.grad, b.grad, rtol=2e-3, atol=1e-5,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The single-direction kernels (csrc/spmm_ops.cu)
+# ---------------------------------------------------------------------------
+
+def _ops_case(seed, width, dev, dtype, v=300, e=2048):
+    """Tables of ``width`` columns over a topology whose nodes above
+    v*3//4 have no edges, and ~5% pad ids (== v) for the segment sum."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, v * 3 // 4, e).astype(np.int32)
+    r = rng.integers(0, v * 3 // 4, e).astype(np.int32)
+    ids = r.copy()
+    ids[rng.random(e) < 0.05] = v
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    return dict(plans=tsp.build_agg_plans(s, r, v).to(dev), v=v,
+                seg=tss.build_sorted_segments(ids, v).to(dev),
+                ids=torch.from_numpy(ids).to(dev),
+                s=torch.from_numpy(s).to(dev), r=torch.from_numpy(r).to(dev),
+                w=torch.rand(e, device=dev), a=t(v, width), b=t(v, width),
+                u=t(v, width), vv=t(v, width), m=t(e, width))
+
+
+def _ops_runs(c, precision="highest"):
+    """(kernel outputs, plain outputs) of the four kernels."""
+    p = c["plans"]
+    m_sorted = c["m"].index_select(0, c["seg"].order.long())
+    got = (tsp.spmm_raw(c["a"], c["w"], p.recv),
+           tsp.sddmm(c["a"], c["b"], p.recv),
+           tsp.sddmm_dual(c["a"], c["b"], c["u"], c["vv"], p.recv),
+           tss.sorted_segment_sum(m_sorted, c["seg"], c["v"], precision))
+    m_plain = c["m"] if precision == "highest" else c["m"].bfloat16()
+    want = (tsp.spmm_reference(c["a"], c["w"], c["r"], c["s"], c["v"]),
+            tsp.sddmm_reference(c["a"], c["b"], c["r"], c["s"]),
+            tsp.sddmm_dual_reference(c["a"], c["b"], c["u"], c["vv"],
+                                     c["r"], c["s"]),
+            tss.segment_sum_reference(m_plain, c["ids"], c["v"]))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 33, 66, 256])
+def test_ops_kernels_match_plain_versions(dev, dtype, width):
+    c = _ops_case(30, width, dev, dtype)
+    n0 = tsp.launch_counts()
+    got, want = _ops_runs(c)
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    for name in ("spmm", "sddmm", "sddmm_dual", "sorted_segment_sum"):
+        assert n1[name] == n0[name] + 1, name
+    (sp, sd, sdd, ss), (sp_r, sd_r, sdd_r, ss_r) = got, want
+    for g, r in ((sp, sp_r), (ss, ss_r)):          # [V, width] in T
+        assert g.dtype == dtype and g.shape == (c["v"], width)
+        torch.testing.assert_close(g.float(), r, **TOL[dtype])
+    for g, r in ((sd, sd_r), (sdd, sdd_r)):        # [E] f32 from T tables
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, r, **TOL[torch.float32])
+    # nodes without edges get zero rows, not uninitialised memory
+    assert (sp[c["v"] * 3 // 4:] == 0).all()
+    assert (ss[c["v"] * 3 // 4:] == 0).all()
+
+
+def test_segment_sum_default_precision_rounds_to_bf16(dev):
+    c = _ops_case(31, 66, dev, torch.float32)
+    got, want = _ops_runs(c, "default")
+    torch.testing.assert_close(got[3], want[3], **TOL[torch.float32])
+    exact = _ops_runs(c)[0][3]
+    assert not torch.allclose(got[3], exact, rtol=1e-6, atol=0)
+
+
+def test_ops_kernels_are_deterministic(dev):
+    c = _ops_case(32, 66, dev, torch.bfloat16, v=500, e=4096)
+    a, b = _ops_runs(c)[0], _ops_runs(c)[0]
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_vjp_matches_plain_autograd(dev, dtype):
+    c = _ops_case(33, 66, dev, dtype)
+    p = c["plans"]
+    g = torch.randn(c["v"], 66, device=dev).to(dtype)
+    h, w = c["a"].clone().requires_grad_(), c["w"].clone().requires_grad_()
+    n0 = tsp.launch_counts()
+    dh, dw = torch.autograd.grad(tsp.spmm(h, w, p.recv, p.send), (h, w), g)
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert (n1["spmm"] - n0["spmm"], n1["sddmm"] - n0["sddmm"]) == (2, 1)
+    h32 = c["a"].float().requires_grad_()
+    w32 = c["w"].clone().requires_grad_()
+    ref = tsp.spmm_reference(h32, w32, c["r"], c["s"], c["v"])
+    dh_r, dw_r = torch.autograd.grad(ref, (h32, w32), g.float())
+    assert dh.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(dh.float(), dh_r, **TOL[dtype])
+    torch.testing.assert_close(dw, dw_r, **TOL[torch.float32])

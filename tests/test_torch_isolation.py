@@ -22,8 +22,8 @@ def test_port_imports_without_jax():
         "import gnn_fpga_tpu_torch\n"
         "from gnn_fpga_tpu_torch.core import graph\n"
         "from gnn_fpga_tpu_torch.data import toy2d\n"
-        "from gnn_fpga_tpu_torch.ops import segment\n"
-        "from gnn_fpga_tpu_torch.ops.cuda import spmm, _build\n"
+        "from gnn_fpga_tpu_torch.ops import segment, dense_incidence, blocked\n"
+        "from gnn_fpga_tpu_torch.ops.cuda import spmm, segment_sum, _build\n"
         "from gnn_fpga_tpu_torch.models import mpnn\n"
         "from gnn_fpga_tpu_torch.utils import serialization\n"
         "from gnn_fpga_tpu_torch.train import trainer, checkpoint, metrics\n"

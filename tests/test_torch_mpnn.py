@@ -208,16 +208,20 @@ def test_auto_with_plans_takes_the_fused_kernel_route(monkeypatch):
 
 
 def test_routes_not_ported_raise():
+    """Every route the JAX package selects is ported now: auto on a small
+    graph without plans takes the dense route, and what still raises is a
+    route that needs a plan the graph lacks."""
     tgraph, _ = _graphs(6)
     _, _, model = _models(seed=6)
     plain = tgraph.replace(plans=None)
     with torch.no_grad():
-        # small graph, no plans: JAX's "auto" picks the dense route
-        with pytest.raises(NotImplementedError, match="dense"):
-            _variant(model, aggregation="auto")(plain)
-        with pytest.raises(NotImplementedError, match="dense"):
-            _variant(model, aggregation="dense")(tgraph)
-        with pytest.raises(NotImplementedError, match="blocked"):
-            _variant(model, aggregation="auto")(tgraph.replace(blocks=object()))
+        sparse = _variant(model, aggregation="sparse")(plain)
+        m = plain.edge_mask > 0
+        for route, g in (("auto", plain), ("dense", tgraph)):
+            got = _variant(model, aggregation=route)(g)
+            np.testing.assert_allclose(got[m].numpy(), sparse[m].numpy(),
+                                       **F32_TOL)
+        with pytest.raises(ValueError, match="blocked"):
+            _variant(model, aggregation="blocked")(tgraph)
         with pytest.raises(ValueError, match="plans"):
             _variant(model, aggregation="pallas")(plain)

@@ -170,7 +170,8 @@ def test_bwd_wrappers_do_not_count_on_cpu():
     assert tsp.launch_counts() == before
     assert set(before) == {"iteration_pair", "aggregate_pair",
                            "iteration_pair_bwd", "aggregate_pair_bwd",
-                           "gather_pair_bwd"}
+                           "gather_pair_bwd", "spmm", "sddmm", "sddmm_dual",
+                           "sorted_segment_sum"}
 
 
 # ---------------------------------------------------------------------------
