@@ -1,5 +1,5 @@
 // Helpers shared by the message-passing kernels (spmm.cu, spmm_bwd.cu,
-// spmm_ops.cu).
+// spmm_ops.cu, gather.cu).
 
 #pragma once
 

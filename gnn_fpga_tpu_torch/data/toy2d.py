@@ -80,7 +80,8 @@ def toy_edges(cfg: Toy2DConfig):
             np.concatenate(receivers).astype(np.int32))
 
 
-def _batched_graph(feats, senders, receivers, ey, edge_mask) -> Graph:
+def _batched_graph(feats, senders, receivers, ey, edge_mask,
+                   node_y=None) -> Graph:
     n_events, n_node = feats.shape[:2]
     return Graph(
         x=torch.from_numpy(np.array(feats, dtype=np.float32)),
@@ -89,6 +90,8 @@ def _batched_graph(feats, senders, receivers, ey, edge_mask) -> Graph:
         y=torch.from_numpy(np.array(ey, dtype=np.float32)),
         node_mask=torch.ones((n_events, n_node), dtype=torch.float32),
         edge_mask=torch.from_numpy(np.array(edge_mask, dtype=np.float32)),
+        node_y=None if node_y is None
+        else torch.from_numpy(np.array(node_y, dtype=np.float32)),
     )
 
 
@@ -132,3 +135,23 @@ def make_knn_segment_graphs(cfg: Toy2DConfig, n_events: int,
     feats = np.stack([x, r / max(r.max(), 1e-9)], axis=-1)
     return _batched_graph(feats, senders, receivers, ey,
                           np.ones(senders.shape, np.float32))
+
+
+def make_seeded_node_graphs(cfg: Toy2DConfig, n_events: int,
+                            seed_layers: int = 3) -> Graph:
+    """Batched graphs of the seeded hit-classification task: node features
+    ``[x, r/r_max, seed]``, where ``seed`` marks track 0's hits on the
+    first ``seed_layers`` layers; node label ``node_y`` = the hit belongs
+    to track 0; edges are every hit pair on adjacent layers
+    (:func:`toy_edges`) with the same-track edge label."""
+    x, y, r, l = generate_events(cfg, n_events)
+    senders, receivers = toy_edges(cfg)
+    n_edge = len(senders)
+    y0 = (y == 0).astype(np.float32)
+    seed = np.where(l < seed_layers, y0, 0.0).astype(np.float32)
+    feats = np.stack([x, r / r.max(), seed], axis=-1)
+    ey = (y[:, senders] == y[:, receivers]).astype(np.float32)
+    return _batched_graph(
+        feats, np.broadcast_to(senders[None], (n_events, n_edge)),
+        np.broadcast_to(receivers[None], (n_events, n_edge)), ey,
+        np.ones((n_events, n_edge), np.float32), node_y=y0)

@@ -1,16 +1,25 @@
-"""The SegmentClassifier interaction network in PyTorch.
+"""The interaction-network models in PyTorch.
 
-The counterpart of ``gnn_fpga_tpu/models/mpnn.py``: an edge (track-segment)
-classifier whose edge and node networks are shared across ``n_iters``
-message-passing iterations.  ``forward`` runs
+The counterpart of ``gnn_fpga_tpu/models/mpnn.py``, with its three heads:
+
+- :class:`SegmentClassifier`, an edge (track-segment) classifier whose
+  edge and node networks are shared across ``n_iters`` message-passing
+  iterations;
+- :class:`SegmentClassifierUnshared`, the same with each iteration's own
+  edge and node networks (``nn.ModuleList``s ``edge_stack`` and
+  ``node_stack``) and a separate ``output`` edge network;
+- :class:`NodeClassifier`, the hit classifier: shared networks and a
+  ``d -> 1`` ``output`` layer on the final node table.
+
+Each runs
 
     input MLP -> [H, X] -> n_iters x (edge net -> node net -> [H, X])
-    -> final edge net
+    -> head (final edge net, or the node layer)
 
 on a COO :class:`~gnn_fpga_tpu_torch.core.graph.Graph`, single or batched
 (leading batch axis, as the JAX package ``vmap``s its forward).
 
-The module stores the first edge layer ``[2D, H]`` as its sender and
+An edge network stores its first layer ``[2D, H]`` as the sender and
 receiver halves ``pa``/``pb`` (``cat([h[s], h[r]]) @ W1 == (h @ W1a)[s] +
 (h @ W1b)[r]``) plus the bias ``b1``.  Pruning masks are a dict shaped
 like the submodules (``{"edge": {"pa", "pb", "l2"}, "node": {"l1", "l2"}}``,
@@ -71,6 +80,21 @@ class SegmentClassifierConfig:
     remat: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class NodeClassifierConfig:
+    """The hit classifier's settings; the fields mean what they mean in
+    :class:`SegmentClassifierConfig`."""
+    input_dim: int = 4
+    hidden_dim: int = 8
+    n_iters: int = 1
+    activation: Callable = torch.tanh
+    dtype: torch.dtype = torch.float32
+    aggregation: str = "auto"
+    compute_dtype: Optional[torch.dtype] = None
+    remat: bool = False
+    fused_iteration: bool = True
+
+
 # ---------------------------------------------------------------------------
 # Modules and initialisation
 # ---------------------------------------------------------------------------
@@ -114,37 +138,98 @@ class NodeNetwork(nn.Module):
         self.l2 = _Linear(output_dim, output_dim, dtype, device)
 
 
-class SegmentClassifier(nn.Module):
-    """Shared-weight SegmentClassifier; ``forward`` returns edge logits."""
+def _fan_ins(module: nn.Module) -> dict:
+    """Parameter name -> fan-in: a layer's input width, and for an edge
+    network's split first layer (``pa``, ``pb``, ``b1``) that of the whole
+    ``[2D, H]``."""
+    fan_in = {}
+    for name, m in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, EdgeNetwork):
+            for p in ("pa.weight", "pb.weight", "b1"):
+                fan_in[pre + p] = 2 * m.pa.weight.shape[1]
+        elif isinstance(m, _Linear):
+            for p, _ in m.named_parameters():
+                fan_in.setdefault(pre + p, m.weight.shape[1])
+    return fan_in
 
-    def __init__(self, cfg: SegmentClassifierConfig,
-                 generator: torch.Generator, device=None):
+
+class _Model(nn.Module):
+    """What the three heads share: the input layer and the initialisation."""
+
+    def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        d = cfg.input_dim + cfg.hidden_dim
-        self.input = _Linear(cfg.input_dim, cfg.hidden_dim, cfg.dtype, device)
-        self.edge = EdgeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
-        self.node = NodeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
-        self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every weight and bias,
         the PyTorch 0.4 ``nn.Linear`` default the JAX package keeps.  The
         split first edge layer uses the fan-in of the whole ``[2D, H]``."""
-        d = self.cfg.input_dim + self.cfg.hidden_dim
-        fan_in = {"input": self.cfg.input_dim, "edge.pa": 2 * d,
-                  "edge.pb": 2 * d, "edge.b1": 2 * d,
-                  "edge.l2": self.cfg.hidden_dim, "node.l1": 3 * d,
-                  "node.l2": self.cfg.hidden_dim}
+        fan_in = _fan_ins(self)
         for name, p in self.named_parameters():
-            layer = name if name == "edge.b1" else name.rsplit(".", 1)[0]
-            bound = 1.0 / math.sqrt(fan_in[layer])
+            bound = 1.0 / math.sqrt(fan_in[name])
             u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
             p.copy_(u * (2 * bound) - bound)
 
+
+class SegmentClassifier(_Model):
+    """Shared-weight SegmentClassifier; ``forward`` returns edge logits."""
+
+    def __init__(self, cfg: SegmentClassifierConfig,
+                 generator: torch.Generator, device=None):
+        super().__init__(cfg)
+        d = cfg.input_dim + cfg.hidden_dim
+        self.input = _Linear(cfg.input_dim, cfg.hidden_dim, cfg.dtype, device)
+        self.edge = EdgeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
+        self.node = NodeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
+        self.reset_parameters(generator)
+
     def forward(self, graph: Graph, masks: Masks = None) -> torch.Tensor:
         return segment_classifier_logits(self, graph, masks)
+
+
+class SegmentClassifierUnshared(_Model):
+    """SegmentClassifier with per-iteration weights
+    (``MPNN_Seg_Toy2D.ipynb:cell14``): ``edge_stack[i]`` and
+    ``node_stack[i]`` run iteration ``i``, the ``output`` edge network
+    scores the edges; ``forward`` returns edge logits.  Takes no pruning
+    masks."""
+
+    def __init__(self, cfg: SegmentClassifierConfig,
+                 generator: torch.Generator, device=None):
+        super().__init__(cfg)
+        d = cfg.input_dim + cfg.hidden_dim
+        h = cfg.hidden_dim
+        self.input = _Linear(cfg.input_dim, h, cfg.dtype, device)
+        self.edge_stack = nn.ModuleList(
+            EdgeNetwork(d, h, cfg.dtype, device) for _ in range(cfg.n_iters))
+        self.node_stack = nn.ModuleList(
+            NodeNetwork(d, h, cfg.dtype, device) for _ in range(cfg.n_iters))
+        self.output = EdgeNetwork(d, h, cfg.dtype, device)
+        self.reset_parameters(generator)
+
+    def forward(self, graph: Graph, masks: Masks = None) -> torch.Tensor:
+        return segment_classifier_unshared_logits(self, graph, masks)
+
+
+class NodeClassifier(_Model):
+    """Shared-weight interaction network with a per-node head
+    (``MPNN_HitClassifier.ipynb:cell21``): ``forward`` returns node
+    logits ``[V]`` (``[B, V]`` for a batched graph)."""
+
+    def __init__(self, cfg: NodeClassifierConfig,
+                 generator: torch.Generator, device=None):
+        super().__init__(cfg)
+        d = cfg.input_dim + cfg.hidden_dim
+        self.input = _Linear(cfg.input_dim, cfg.hidden_dim, cfg.dtype, device)
+        self.edge = EdgeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
+        self.node = NodeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
+        self.output = _Linear(d, 1, cfg.dtype, device)
+        self.reset_parameters(generator)
+
+    def forward(self, graph: Graph, masks: Masks = None) -> torch.Tensor:
+        return node_classifier_logits(self, graph, masks)
 
 
 def init_segment_classifier(cfg: SegmentClassifierConfig,
@@ -154,26 +239,52 @@ def init_segment_classifier(cfg: SegmentClassifierConfig,
     return SegmentClassifier(cfg, generator, device)
 
 
-def _cast_for_compute(model: SegmentClassifier, x, compute_dtype) -> tuple:
-    """The module's parameters as a nested dict, cast (with ``x``) to
-    ``compute_dtype`` when it is set."""
+def init_segment_classifier_unshared(cfg: SegmentClassifierConfig,
+                                     generator: torch.Generator,
+                                     device=None) -> SegmentClassifierUnshared:
+    """A SegmentClassifierUnshared with weights drawn from ``generator``."""
+    return SegmentClassifierUnshared(cfg, generator, device)
+
+
+def init_node_classifier(cfg: NodeClassifierConfig,
+                         generator: torch.Generator,
+                         device=None) -> NodeClassifier:
+    """A NodeClassifier with weights drawn from ``generator``."""
+    return NodeClassifier(cfg, generator, device)
+
+
+def count_params(model: nn.Module) -> int:
+    """Total parameter count."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def _params_of(module: nn.Module, cast) -> object:
+    """A module's parameters as the nested dict (lists for
+    ``nn.ModuleList``s) the route functions read: ``{"w", "b"}`` for a
+    layer, the module's own parameters by name, its children by name."""
+    if isinstance(module, _Linear):
+        return {"w": cast(module.weight),
+                "b": None if module.bias is None else cast(module.bias)}
+    if isinstance(module, nn.ModuleList):
+        return [_params_of(m, cast) for m in module]
+    out = {k: _params_of(m, cast) for k, m in module.named_children()}
+    out.update((k, cast(p)) for k, p in module.named_parameters(recurse=False))
+    return out
+
+
+def _cast_for_compute(model: nn.Module, x, compute_dtype) -> tuple:
+    """The model's parameters as a nested dict (:func:`_params_of`), cast
+    (with ``x``) to ``compute_dtype`` when it is set."""
     c = (lambda t: t) if compute_dtype is None else (
         lambda t: t.to(compute_dtype))
-    lin = lambda m: {"w": c(m.weight), "b": None if m.bias is None
-                     else c(m.bias)}
-    e, n = model.edge, model.node
-    params = {
-        "input": lin(model.input),
-        "edge": {"pa": lin(e.pa), "pb": lin(e.pb), "b1": c(e.b1),
-                 "l2": lin(e.l2)},
-        "node": {"l1": lin(n.l1), "l2": lin(n.l2)},
-    }
-    return params, c(x)
+    return _params_of(model, c), c(x)
 
 
 def _masked(p, mask):
-    # The {0, 1} mask is cast to the weight's dtype, which is exact; the JAX
-    # package instead promotes bf16 weights to f32 under an f32 mask.
+    # The {0, 1} mask is cast to the weight's dtype, which is exact, so a
+    # masked layer runs in the compute dtype; the JAX package instead
+    # promotes bf16 weights to f32 under an f32 mask (ROADMAP Queue 3,
+    # tests/test_torch_heads.py measures the gap).
     w = p["w"]
     return w if mask is None else w * mask.to(w.dtype)
 
@@ -377,15 +488,17 @@ def _dense_mp_body(ri, ro, x, masks_e, masks_n, act):
     return body
 
 
-def _dense_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act):
-    """SegmentClassifier forward on the dense incidence route."""
+def _dense_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act, iters,
+                     head):
+    """Forward on the dense incidence route: the iterations over
+    ``iters(params)``, then ``head(params, h, edge_logits)``."""
     params, x, ri, ro, h = _dense_prelude(model, graph, cfg, act)
     body = _dense_mp_body(ri, ro, x, masks_e, masks_n, act)
-    for _ in range(cfg.n_iters):
-        h = body(h, params["edge"], params["node"])
-    logits = _dense_edge_logits(params["edge"], dinc.gather_bmm(ro, h),
-                                dinc.gather_bmm(ri, h), masks_e, act)
-    return logits.float()
+    for ep, np_ in iters(params):
+        h = body(h, ep, np_)
+    edge_logits = lambda p, m: _dense_edge_logits(
+        p, dinc.gather_bmm(ro, h), dinc.gather_bmm(ri, h), m, act)
+    return head(params, h, edge_logits).float()
 
 
 def _blocked_prelude(model, graph: Graph, cfg, act):
@@ -415,29 +528,59 @@ def _blocked_mp_body(g, ri, ro, x, masks_e, masks_n, act, n_blocks):
     return body
 
 
-def _blocked_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act):
-    """SegmentClassifier forward on the blocked route.  Logits come out in
-    block order, which is the graph's edge order after
-    :func:`~gnn_fpga_tpu_torch.ops.blocked.attach_blocks_layered`."""
+def _blocked_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act,
+                       iters, head):
+    """Forward on the blocked route, as :func:`_dense_mp_logits`.  Edge
+    logits come out in block order, which is the graph's edge order after
+    :func:`~gnn_fpga_tpu_torch.ops.blocked.attach_blocks_layered`; the
+    node table ``h`` stays global, so a node head reads it as it is."""
     params, x, g, ri, ro, nb, h = _blocked_prelude(model, graph, cfg, act)
     body = _blocked_mp_body(g, ri, ro, x, masks_e, masks_n, act, nb)
-    for _ in range(cfg.n_iters):
-        h = body(h, params["edge"], params["node"])
-    hb = blk.gather_blocks(g, h, nb)
-    logits = _dense_edge_logits(params["edge"], blk.gather_bmm(ro, hb),
-                                blk.gather_bmm(ri, hb), masks_e, act)
-    return logits.flatten(-2).float()
+    for ep, np_ in iters(params):
+        h = body(h, ep, np_)
+
+    def edge_logits(p, m):
+        hb = blk.gather_blocks(g, h, nb)
+        return _dense_edge_logits(p, blk.gather_bmm(ro, hb),
+                                  blk.gather_bmm(ri, hb), m, act).flatten(-2)
+
+    return head(params, h, edge_logits).float()
+
+
+def _sparse_mp_logits(model, graph: Graph, cfg, masks_e, masks_n, act, iters,
+                      head, remat):
+    """Forward of a single graph on the pallas route (fused iterations
+    with tanh and ``cfg.fused_iteration``, else ``gather_pair`` and
+    ``aggregate_pair``) or the sparse route, as :func:`_dense_mp_logits`;
+    with ``remat`` each iteration is recomputed in the backward pass."""
+    use_pallas = _use_pallas(cfg, graph)
+    edge_net = edge_network_logits_proj if use_pallas else edge_network_logits
+    params, x = _cast_for_compute(model, graph.x, cfg.compute_dtype)
+    h = _input_layer(params, x, act)
+    if use_pallas and cfg.fused_iteration and act is torch.tanh:
+        body = _fused_iter_body(graph, x, act, masks_e, masks_n)
+    else:
+        body = _unfused_iter_body(graph, x, act, masks_e, masks_n, use_pallas)
+    for ep, np_ in iters(params):
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(body, h, ep, np_, use_reentrant=False)
+        else:
+            h = body(h, ep, np_)
+    edge_logits = lambda p, m: edge_net(p, h, graph, m, act)
+    return head(params, h, edge_logits).float()
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
-def segment_classifier_logits(model: SegmentClassifier, graph: Graph,
-                              masks: Masks = None) -> torch.Tensor:
-    """Final edge logits (f32), ``[E]`` for a single graph and ``[B, E]``
-    for a batched one, on the route that ``model.cfg.aggregation`` selects
-    for it (in the JAX package's order: blocked, dense, pallas, sparse)."""
+def _logits(model, graph: Graph, masks: Masks, iters, head, remat: bool):
+    """Logits (f32) on the route that ``model.cfg.aggregation`` selects for
+    ``graph``, in the JAX package's order: blocked, dense, pallas, sparse.
+    ``iters(params)`` gives each iteration's ``(edge, node)`` parameters;
+    ``head(params, h, edge_logits)`` turns the final node table into
+    logits, where ``edge_logits(edge_params, edge_masks)`` scores the
+    edges on the route taken."""
     cfg = model.cfg
     act = cfg.activation
     masks_e = _mask(masks, "edge")
@@ -445,34 +588,85 @@ def segment_classifier_logits(model: SegmentClassifier, graph: Graph,
     if graph.x.ndim not in (2, 3):
         raise ValueError("expected a graph [V, F] or a batch [B, V, F]")
     if _use_blocked(cfg, graph):
-        return _blocked_mp_logits(model, graph, cfg, masks_e, masks_n, act)
+        return _blocked_mp_logits(model, graph, cfg, masks_e, masks_n, act,
+                                  iters, head)
     if _use_dense(cfg, graph):
-        return _dense_mp_logits(model, graph, cfg, masks_e, masks_n, act)
+        return _dense_mp_logits(model, graph, cfg, masks_e, masks_n, act,
+                                iters, head)
     if graph.x.ndim == 3:
-        return torch.stack([segment_classifier_logits(model, g, masks)
+        return torch.stack([_logits(model, g, masks, iters, head, remat)
                             for g in unbatch_graphs(graph)])
-    use_pallas = _use_pallas(cfg, graph)
-    edge_logits = edge_network_logits_proj if use_pallas else edge_network_logits
-    params, x = _cast_for_compute(model, graph.x, cfg.compute_dtype)
-    h = _input_layer(params, x, act)
+    return _sparse_mp_logits(model, graph, cfg, masks_e, masks_n, act, iters,
+                             head, remat)
 
-    if use_pallas and cfg.fused_iteration and act is torch.tanh:
-        body = _fused_iter_body(graph, x, act, masks_e, masks_n)
-    else:
-        body = _unfused_iter_body(graph, x, act, masks_e, masks_n, use_pallas)
-    for _ in range(cfg.n_iters):
-        if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(body, h, params["edge"], params["node"],
-                           use_reentrant=False)
-        else:
-            h = body(h, params["edge"], params["node"])
-    return edge_logits(params["edge"], h, graph, masks_e, act).float()
+
+def _shared_iters(cfg):
+    """The iterations of a shared-weight model: ``n_iters`` times the
+    ``edge`` and ``node`` networks."""
+    return lambda params: [(params["edge"], params["node"])] * cfg.n_iters
+
+
+def segment_classifier_logits(model: SegmentClassifier, graph: Graph,
+                              masks: Masks = None) -> torch.Tensor:
+    """Final edge logits (f32), ``[E]`` for a single graph and ``[B, E]``
+    for a batched one, on the route that ``model.cfg.aggregation`` selects
+    for it (in the JAX package's order: blocked, dense, pallas, sparse)."""
+    masks_e = _mask(masks, "edge")
+    return _logits(model, graph, masks, _shared_iters(model.cfg),
+                   lambda params, h, edge_logits: edge_logits(params["edge"],
+                                                              masks_e),
+                   model.cfg.remat)
 
 
 def segment_classifier(model: SegmentClassifier, graph: Graph,
                        masks: Masks = None) -> torch.Tensor:
     """Edge probabilities: the sigmoid of the logits."""
     return torch.sigmoid(segment_classifier_logits(model, graph, masks))
+
+
+def segment_classifier_unshared_logits(model: SegmentClassifierUnshared,
+                                       graph: Graph,
+                                       masks: Masks = None) -> torch.Tensor:
+    """Edge logits of the unshared head, routed as
+    :func:`segment_classifier_logits`: iteration ``i`` runs
+    ``edge_stack[i]``/``node_stack[i]`` and the ``output`` edge network
+    scores the edges (on the pallas route through ``gather_pair``).  The
+    JAX package accepts masks here and drops them, which would keep
+    pruned weights training; the port raises instead.  As in the JAX
+    package, ``cfg.remat`` is not applied."""
+    if masks:          # an empty dict, magnitude_masks' own, masks nothing
+        raise ValueError("SegmentClassifierUnshared takes no pruning masks")
+    return _logits(model, graph, None,
+                   lambda params: zip(params["edge_stack"],
+                                      params["node_stack"]),
+                   lambda params, h, edge_logits: edge_logits(
+                       params["output"], None),
+                   False)
+
+
+def segment_classifier_unshared(model: SegmentClassifierUnshared,
+                                graph: Graph,
+                                masks: Masks = None) -> torch.Tensor:
+    """Edge probabilities of the unshared head."""
+    return torch.sigmoid(segment_classifier_unshared_logits(model, graph,
+                                                            masks))
+
+
+def node_classifier_logits(model: NodeClassifier, graph: Graph,
+                           masks: Masks = None) -> torch.Tensor:
+    """Node logits (f32), ``[V]`` for a single graph and ``[B, V]`` for a
+    batched one: the shared iterations on the route
+    :func:`segment_classifier_logits` would take, then the ``output``
+    layer on the final node table (unmasked)."""
+    return _logits(model, graph, masks, _shared_iters(model.cfg),
+                   lambda params, h, _: _linear(params["output"], h)[..., 0],
+                   model.cfg.remat)
+
+
+def node_classifier(model: NodeClassifier, graph: Graph,
+                    masks: Masks = None) -> torch.Tensor:
+    """Node probabilities: the sigmoid of the logits."""
+    return torch.sigmoid(node_classifier_logits(model, graph, masks))
 
 
 def segment_classifier_intermediates(model: SegmentClassifier, graph: Graph,

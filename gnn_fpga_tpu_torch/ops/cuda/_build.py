@@ -35,6 +35,7 @@ _SIGNATURES = {
     "gnn_iteration_pair_bwd": ([_I] * 4 + [_P] * 18 + [_L] + [_P] * 4, _I),
     "gnn_aggregate_pair_bwd": ([_I] * 3 + [_P] * 13, _I),
     "gnn_gather_pair_bwd": ([_I] * 3 + [_P] * 8, _I),
+    "gnn_gather_pair_fwd": ([_I] * 4 + [_P] * 6, _I),
     "gnn_spmm": ([_I] * 3 + [_P] * 7, _I),
     "gnn_sddmm": ([_I] * 3 + [_P] * 9, _I),
     "gnn_sorted_segment_sum": ([_I] * 3 + [_P] * 2 + [_I] + [_P] * 2, _I),

@@ -12,8 +12,10 @@ run on the card as hand-written CUDA kernels (``csrc/spmm.cu``):
   MLP (``w = sigmoid(tanh((pa[s] + pb[r]) * em + b1) . w2 + b2) * em``),
   so no ``[E, H]`` intermediate exists;
 - :func:`aggregate_pair` takes the weights as given;
-- :func:`gather_pair` is the final edge layer's ``pa[s] + pb[r]``; its
-  forward is a plain row gather.
+- :func:`gather_pair` is the edge MLP's first layer in projection form,
+  ``pa[s] + pb[r]`` (the final edge layer, and every unfused iteration);
+  its forward is :func:`gather_pair_fwd` (``csrc/gather.cu``), a row
+  gather in edge order that needs no plan.
 
 Each is a ``torch.autograd.Function`` whose backward is a kernel too
 (``csrc/spmm_bwd.cu``): :func:`iteration_pair_bwd`,
@@ -434,6 +436,36 @@ def aggregate_pair_bwd(h, w, g_mi, g_mo, plans: AggPlans):
     return dh, dw
 
 
+def gather_pair_fwd(pa, pb, senders, receivers):
+    """``out[e] = pa[senders[e]] + pb[receivers[e]]`` [E, H] in the
+    tables' dtype, EDGE order, in one kernel launch, no VJP attached
+    (:func:`gather_pair` adds it); counted in ``gather_pair.launches``.
+    Each element is rounded once from the f32 sum, as the plain version's
+    add rounds it, so the two agree bit for bit.  ``pa``/``pb``: [V, H];
+    ``senders``/``receivers``: [E] int32 ids in [0, V).  An id outside
+    [0, V) raises ``IndexError`` on the CPU; on the card it stops the
+    kernel at a device-side assert, as ``index_select`` does there, and
+    the error surfaces at the next synchronisation."""
+    dev = _kernel_device(pa, "gather_pair")
+    if dev is None:
+        return gather_pair_reference(pa, pb, senders, receivers)
+    if (pa.ndim != 2 or pb.shape != pa.shape or senders.ndim != 1
+            or receivers.shape != senders.shape):
+        raise ValueError("gather_pair: pa and pb must be [V, H] alike, "
+                         "senders and receivers [E]")
+    n_node, hdim = pa.shape
+    _check_widths("gather_pair", hdim)
+    _check_cuda(dev, pa.dtype, pa=pa, pb=pb)
+    _check_cuda(dev, torch.int32, senders=senders, receivers=receivers)
+    out = torch.empty((senders.shape[0], hdim), dtype=pa.dtype, device=dev)
+    code = _lib().gnn_gather_pair_fwd(
+        _DTYPE_CODES[pa.dtype], senders.shape[0], n_node, hdim, _ptr(pa),
+        _ptr(pb), _ptr(senders), _ptr(receivers), _ptr(out), _stream(pa))
+    _raise_on_error(code, "gnn_gather_pair_fwd")
+    gather_pair.launches += 1
+    return out
+
+
 def gather_pair_bwd(g, plans: AggPlans):
     """VJP of :func:`gather_pair` in one kernel launch: ``(dpa, dpb)``
     [V, H] in ``g.dtype``, from ``g`` [E, H] in EDGE order."""
@@ -578,7 +610,7 @@ class _GatherPair(torch.autograd.Function):
     def forward(ctx, pa, pb, senders, receivers, plans):
         ctx.plans = plans
         ctx.dtypes = pa.dtype, pb.dtype
-        return gather_pair_reference(pa, pb, senders, receivers)
+        return gather_pair_fwd(pa, pb, senders, receivers)
 
     @staticmethod
     def backward(ctx, g):
@@ -640,12 +672,16 @@ def aggregate_pair(h, w, plans: AggPlans):
 def gather_pair(pa, pb, senders, receivers, plans: AggPlans):
     """``out[e] = pa[senders[e]] + pb[receivers[e]]`` in the input dtype,
     EDGE order: the projection-form first layer of the edge MLP.  The
-    forward is a row gather (``index_select``); the backward, two [E,
-    H]-row segment sums, is one kernel launch (:func:`gather_pair_bwd`)."""
+    forward, a row gather, is one kernel launch (:func:`gather_pair_fwd`);
+    the backward, two [E, H]-row segment sums, is another
+    (:func:`gather_pair_bwd`)."""
     dev = _kernel_device(pa, "gather_pair")
     if dev is not None:
         if pb.dtype != pa.dtype or pb.shape != pa.shape:
             raise ValueError("gather_pair: pa and pb must match")
+        if senders.shape != (plans.recv.n_edge,):
+            raise ValueError("gather_pair: senders and plans differ in "
+                             "their edge count")
         _check_plans(plans, dev, pa.shape[0])
     return _GatherPair.apply(pa, pb, senders, receivers, plans)
 
@@ -664,6 +700,7 @@ def spmm(h, w, plan: EdgePlan, plan_t: EdgePlan):
 
 iteration_pair.launches = 0
 aggregate_pair.launches = 0
+gather_pair.launches = 0
 iteration_pair_bwd.launches = 0
 aggregate_pair_bwd.launches = 0
 gather_pair_bwd.launches = 0
@@ -675,7 +712,7 @@ sddmm_dual.launches = 0
 def _kernel_wrappers() -> tuple:
     from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
 
-    return (iteration_pair, aggregate_pair, iteration_pair_bwd,
+    return (iteration_pair, aggregate_pair, gather_pair, iteration_pair_bwd,
             aggregate_pair_bwd, gather_pair_bwd, spmm, sddmm, sddmm_dual,
             sorted_segment_sum)
 

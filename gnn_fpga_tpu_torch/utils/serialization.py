@@ -4,11 +4,19 @@
 (``leaf_<i>`` arrays plus a JSON key-path table, or the older keystr
 format) into nested dicts of numpy arrays, with numpy alone, and
 ``save_params_npz`` writes that format.  ``load_jax_params`` fills a
-:class:`SegmentClassifier` from such a tree, ``to_jax_params`` is its
-inverse, and ``load_jax_masks`` converts a JAX pruning-mask tree to the
-port's layout.  JAX stores a weight as ``[in, out]``, ``nn.Linear`` as
-``[out, in]``; the JAX edge network's first layer ``[2D, H]`` becomes the
-port's sender/receiver halves ``pa``/``pb``.
+model of :mod:`gnn_fpga_tpu_torch.models.mpnn` from such a tree,
+``to_jax_params`` is its inverse, and ``load_jax_masks`` converts a JAX
+pruning-mask tree to the port's layout.  The tree follows the model:
+
+- SegmentClassifier: ``input``, ``edge``, ``node``;
+- NodeClassifier: the same and ``output`` (a ``[d, 1]`` layer);
+- SegmentClassifierUnshared: ``input``, ``edge_stack`` and ``node_stack``
+  (an edge and a node network whose leaves are stacked ``[n_iters, ...]``)
+  and ``output`` (an edge network).
+
+JAX stores a weight as ``[in, out]``, ``nn.Linear`` as ``[out, in]``; the
+JAX edge network's first layer ``[2D, H]`` becomes the port's
+sender/receiver halves ``pa``/``pb``.
 """
 
 from __future__ import annotations
@@ -115,24 +123,68 @@ def _split_edge_l1(w1, d):
     return w1[:d].T, w1[d:].T
 
 
-def load_jax_params(model, params) -> None:
-    """Copy a JAX SegmentClassifier parameter tree (numpy arrays) into
-    ``model`` in place."""
+def _linear_state(prefix, p) -> dict:
+    return {f"{prefix}.weight": _f32(p["w"]).T, f"{prefix}.bias": p["b"]}
+
+
+def _edge_state(prefix, p, d) -> dict:
+    wa, wb = _split_edge_l1(p["l1"]["w"], d)
+    return {f"{prefix}.pa.weight": wa, f"{prefix}.pb.weight": wb,
+            f"{prefix}.b1": p["l1"]["b"],
+            **_linear_state(f"{prefix}.l2", p["l2"])}
+
+
+def _node_state(prefix, p) -> dict:
+    return {**_linear_state(f"{prefix}.l1", p["l1"]),
+            **_linear_state(f"{prefix}.l2", p["l2"])}
+
+
+def _unstack(tree, i):
+    """Iteration ``i`` of a stacked ``[n_iters, ...]`` tree."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _jax_state(model, params) -> dict:
+    """The port's state dict (numpy) of a JAX parameter tree of
+    ``model``'s kind."""
+    from gnn_fpga_tpu_torch.models.mpnn import SegmentClassifierUnshared
+
     d = model.cfg.input_dim + model.cfg.hidden_dim
-    wa, wb = _split_edge_l1(params["edge"]["l1"]["w"], d)
-    state = {
-        "input.weight": _f32(params["input"]["w"]).T,
-        "input.bias": params["input"]["b"],
-        "edge.pa.weight": wa,
-        "edge.pb.weight": wb,
-        "edge.b1": params["edge"]["l1"]["b"],
-        "edge.l2.weight": _f32(params["edge"]["l2"]["w"]).T,
-        "edge.l2.bias": params["edge"]["l2"]["b"],
-        "node.l1.weight": _f32(params["node"]["l1"]["w"]).T,
-        "node.l1.bias": params["node"]["l1"]["b"],
-        "node.l2.weight": _f32(params["node"]["l2"]["w"]).T,
-        "node.l2.bias": params["node"]["l2"]["b"],
-    }
+    state = _linear_state("input", params["input"])
+    if isinstance(model, SegmentClassifierUnshared):
+        n = model.cfg.n_iters
+        for key in ("edge_stack", "node_stack"):
+            got = np.asarray(params[key]["l1"]["w"]).shape[0]
+            if got != n:
+                raise ValueError(f"{key} stacks {got} iterations, the "
+                                 f"model has {n}")
+        for i in range(n):
+            state.update(_edge_state(f"edge_stack.{i}",
+                                     _unstack(params["edge_stack"], i), d))
+            state.update(_node_state(f"node_stack.{i}",
+                                     _unstack(params["node_stack"], i)))
+        state.update(_edge_state("output", params["output"], d))
+        return state
+    state.update(_edge_state("edge", params["edge"], d))
+    state.update(_node_state("node", params["node"]))
+    if "output" in params:
+        state.update(_linear_state("output", params["output"]))
+    return state
+
+
+def load_jax_params(model, params) -> None:
+    """Copy a JAX parameter tree (numpy arrays) of ``model``'s kind
+    (SegmentClassifier, SegmentClassifierUnshared or NodeClassifier) into
+    ``model`` in place."""
+    state = _jax_state(model, params)
+    names = [n for n, _ in model.named_parameters()]
+    if set(state) != set(names):
+        raise ValueError(
+            f"the JAX tree does not fit {type(model).__name__}: missing "
+            f"{sorted(set(names) - set(state))}, extra "
+            f"{sorted(set(state) - set(names))}")
     with torch.no_grad():
         for name, p in model.named_parameters():
             src = torch.from_numpy(np.array(_f32(state[name])))
@@ -145,23 +197,41 @@ def load_jax_params(model, params) -> None:
 def to_jax_params(model) -> dict:
     """The JAX package's parameter tree of ``model`` as float32 numpy
     arrays (the inverse of :func:`load_jax_params`): weights ``[in, out]``,
-    ``pa``/``pb`` joined into the edge network's ``[2D, H]`` first layer."""
+    ``pa``/``pb`` joined into the edge network's ``[2D, H]`` first layer,
+    the unshared head's per-iteration networks stacked ``[n_iters, ...]``."""
+    from gnn_fpga_tpu_torch.models.mpnn import SegmentClassifierUnshared
+
     t = {name: p.detach().float().cpu().numpy()
          for name, p in model.named_parameters()}
     lin = lambda n: {"w": t[f"{n}.weight"].T.copy(), "b": t[f"{n}.bias"]}
-    return {
-        "input": lin("input"),
-        "edge": {"l1": {"w": np.concatenate([t["edge.pa.weight"].T,
-                                             t["edge.pb.weight"].T]),
-                        "b": t["edge.b1"]},
-                 "l2": lin("edge.l2")},
-        "node": {"l1": lin("node.l1"), "l2": lin("node.l2")},
-    }
+    edge = lambda n: {"l1": {"w": np.concatenate([t[f"{n}.pa.weight"].T,
+                                                  t[f"{n}.pb.weight"].T]),
+                             "b": t[f"{n}.b1"]},
+                      "l2": lin(f"{n}.l2")}
+    node = lambda n: {"l1": lin(f"{n}.l1"), "l2": lin(f"{n}.l2")}
+    if isinstance(model, SegmentClassifierUnshared):
+        stack = lambda trees: {k: stack([tr[k] for tr in trees])
+                               if isinstance(trees[0][k], dict)
+                               else np.stack([tr[k] for tr in trees])
+                               for k in trees[0]}
+        n = model.cfg.n_iters
+        return {"input": lin("input"),
+                "edge_stack": stack([edge(f"edge_stack.{i}")
+                                     for i in range(n)]),
+                "node_stack": stack([node(f"node_stack.{i}")
+                                     for i in range(n)]),
+                "output": edge("output")}
+    tree = {"input": lin("input"), "edge": edge("edge"), "node": node("node")}
+    if "output.weight" in t:
+        tree["output"] = lin("output")
+    return tree
 
 
 def load_jax_masks(masks, input_dim: int, hidden_dim: int, device=None):
     """Convert a JAX mask tree (``{"edge": {"l1", "l2"}, "node": {"l1",
-    "l2"}}``, ``[in, out]``) to the port's mask dict of tensors."""
+    "l2"}}``, ``[in, out]``, as the JAX package's pruning writes it for a
+    SegmentClassifier or a NodeClassifier) to the port's mask dict of
+    tensors."""
     d = input_dim + hidden_dim
     out = {}
     t = lambda a: torch.from_numpy(np.array(a)).to(device)

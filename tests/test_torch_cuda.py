@@ -8,6 +8,9 @@ has only PyTorch:
 """
 
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,8 +204,111 @@ def test_model_gradients_on_kernel_route_match_sparse_route(dev, fused):
     n1 = tsp.launch_counts()
     bwd = "iteration_pair_bwd" if fused else "aggregate_pair_bwd"
     assert n1[bwd] == n0[bwd] + cfg.n_iters
-    assert n1["gather_pair_bwd"] == (n0["gather_pair_bwd"] + 1
-                                     + (0 if fused else cfg.n_iters))
+    for name in ("gather_pair", "gather_pair_bwd"):
+        assert n1[name] == n0[name] + 1 + (0 if fused else cfg.n_iters), name
+    for (name, a), b in zip(model.named_parameters(), sparse.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-3, atol=1e-5,
+                                   msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The gather forward (csrc/gather.cu) and the other heads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hdim", [1, 3, 16, 33, 64, 67, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_pair_fwd_equals_plain_bit_for_bit(dev, dtype, hdim, aligned):
+    """One rounding of the f32 sum, as the plain add: equal bit for bit.
+    ``aligned=False`` offsets the tables by one element, which takes the
+    scalar path whatever the width.  The widths give every lane-group size
+    (1 to 32 lanes an edge) and rows longer than 32 items; 2001 edges leave
+    a partial last block."""
+    c = _case(27, 300, 2001, 8, hdim, dev, dtype)
+    pa, pb = c["pa"], c["pb"]
+    if not aligned:
+        pa, pb = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                  for t in (pa, pb))
+    n0 = tsp.gather_pair.launches
+    got = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
+    want = tsp.gather_pair_reference(pa, pb, c["s"], c["r"])
+    torch.cuda.synchronize()
+    assert tsp.gather_pair.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (2001, hdim)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", [-1, 300])
+def test_gather_pair_fwd_stops_at_ids_outside_the_tables(dev, bad):
+    """An id outside [0, V) stops the kernel at a device-side assert
+    instead of reading past a table.  The assert loses the process's CUDA
+    context, so the call runs in a child process."""
+    code = (
+        "import torch\n"
+        "from gnn_fpga_tpu_torch.ops.cuda import spmm\n"
+        "pa = torch.randn(300, 64, device='cuda')\n"
+        "s = torch.zeros(2001, dtype=torch.int32, device='cuda')\n"
+        f"s[1234] = {bad}\n"
+        "spmm.gather_pair_fwd(pa, pa, s, s.flip(0).contiguous())\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    root = Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0, p.stdout
+    assert "device-side assert" in p.stderr, p.stderr[-2000:]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("head", ["unshared", "node"])
+def test_heads_on_kernel_route_match_sparse_route(dev, head, fused):
+    """Logits and parameter gradients of the other two heads on the kernel
+    route against their sparse route, with the kernels each launches: the
+    unshared head's output layer is one gather_pair, the node head has
+    none; an unfused iteration is a gather_pair and an aggregate_pair."""
+    from gnn_fpga_tpu_torch.train.trainer import masked_bce_with_logits
+
+    rng = np.random.default_rng(28)
+    v, e = 200, 1024
+    x = rng.normal(size=(v, 3)).astype(np.float32)
+    s = rng.integers(0, v - 1, e).astype(np.int32)
+    r = rng.integers(0, v - 1, e).astype(np.int32)
+    y = (rng.random(e) < 0.3).astype(np.float32)
+    node_y = (rng.random(v) < 0.3).astype(np.float32)
+    g = tg.attach_plans(tg.pad_graph(tg.from_coo(x, s, r, y, node_y),
+                                     v + 1, e + 64)).to(dev)
+    if head == "node":
+        cfg = tm.NodeClassifierConfig(input_dim=3, hidden_dim=16, n_iters=3,
+                                      aggregation="pallas",
+                                      fused_iteration=fused)
+        init, y, mask, n_out = (tm.init_node_classifier, g.node_y,
+                                g.node_mask, 0)
+    else:
+        cfg = tm.SegmentClassifierConfig(input_dim=3, hidden_dim=16,
+                                         n_iters=3, aggregation="pallas",
+                                         fused_iteration=fused)
+        init, y, mask, n_out = (tm.init_segment_classifier_unshared, g.y,
+                                g.edge_mask, 1)
+    model = init(cfg, torch.Generator().manual_seed(2), device=dev)
+    sparse = type(model)(dataclasses.replace(cfg, aggregation="sparse"),
+                         torch.Generator(), device=dev)
+    sparse.load_state_dict(model.state_dict())
+    n0 = tsp.launch_counts()
+    logits = model(g)
+    masked_bce_with_logits(logits, y, mask, 3.0).backward()
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    want = sparse(g)
+    masked_bce_with_logits(want, y, mask, 3.0).backward()
+    n_iter = 0 if fused else cfg.n_iters
+    it = cfg.n_iters - n_iter
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        k: n for k, n in dict(
+            iteration_pair=it, iteration_pair_bwd=it,
+            aggregate_pair=n_iter, aggregate_pair_bwd=n_iter,
+            gather_pair=n_iter + n_out, gather_pair_bwd=n_iter + n_out,
+        ).items() if n}
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)
     for (name, a), b in zip(model.named_parameters(), sparse.parameters()):
         torch.testing.assert_close(a.grad, b.grad, rtol=2e-3, atol=1e-5,
                                    msg=name)

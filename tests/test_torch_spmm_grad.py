@@ -130,6 +130,41 @@ def test_gather_pair_vjp_matches_jax(kind):
     _close(got, want, KERNEL_GRAD_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gather_pair_fwd_matches_jax_kernel(kind, dtype):
+    """The port's gather forward on the CPU against the TPU kernel itself
+    (``_gather_pair_raw``, interpreted), which sums in f32: the port
+    rounds that sum once to the tables' dtype."""
+    c = _case(36, 64, 160, 8, 12, kind)
+    plans_j = jsp.build_agg_plans(c["s"], c["r"], c["v"], tile_e=32)
+    pa, pb = (jnp.asarray(c[k], dtype) for k in ("pa", "pb"))
+    with pltpu.force_tpu_interpret_mode():
+        want = jsp._gather_pair_raw(pa, pb, plans_j.recv)
+    tdt = getattr(torch, dtype)
+    got = tsp.gather_pair_fwd(
+        torch.from_numpy(c["pa"]).to(tdt), torch.from_numpy(c["pb"]).to(tdt),
+        torch.from_numpy(c["s"]), torch.from_numpy(c["r"]))
+    assert got.dtype == tdt and got.shape == (160, 12)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(dtype), np.float32))
+
+
+@pytest.mark.parametrize("side", ["senders", "receivers"])
+@pytest.mark.parametrize("bad", [-1, 64])
+def test_gather_pair_fwd_rejects_ids_outside_the_tables(side, bad):
+    """An id outside [0, V) raises rather than reading past a table (on
+    the card: a device-side assert, ``tests/test_torch_cuda.py``)."""
+    c = _case(37, 64, 160, 8, 12, "padded")
+    ids = {k: torch.from_numpy(c[k[0]].copy()) for k in ("senders",
+                                                         "receivers")}
+    ids[side][5] = bad
+    with pytest.raises(IndexError):
+        tsp.gather_pair_fwd(torch.from_numpy(c["pa"]),
+                            torch.from_numpy(c["pb"]), ids["senders"],
+                            ids["receivers"])
+
+
 def test_plain_backwards_match_autograd_of_plain_forwards():
     c = _case(34, 48, 128, 9, 7, "padded")
     s, r, v = torch.from_numpy(c["s"]), torch.from_numpy(c["r"]), c["v"]
@@ -167,8 +202,11 @@ def test_bwd_wrappers_do_not_count_on_cpu():
     mi, mo = tsp.iteration_pair(a["pa"], a["pb"], a["h"], ems, a["w2"],
                                 a["b1"], a["b2"], plans)
     (mi.sum() + mo.sum()).backward()
+    out = tsp.gather_pair(a["pa"], a["pb"], torch.from_numpy(c["s"]),
+                          torch.from_numpy(c["r"]), plans)
+    out.sum().backward()
     assert tsp.launch_counts() == before
-    assert set(before) == {"iteration_pair", "aggregate_pair",
+    assert set(before) == {"iteration_pair", "aggregate_pair", "gather_pair",
                            "iteration_pair_bwd", "aggregate_pair_bwd",
                            "gather_pair_bwd", "spmm", "sddmm", "sddmm_dual",
                            "sorted_segment_sum"}
