@@ -17,7 +17,12 @@ it:
 2. build: compiles the CUDA kernels from ``gnn_fpga_tpu_torch/csrc``;
 3. kernels: each kernel, forward and backward, against its plain PyTorch
    version at the main path's shapes, f32 and bf16, with times (CUDA
-   events);
+   events), its bound (the larger of its bytes over the card's memory rate
+   and its operations over the f32 rate) and, where one PyTorch call
+   computes the same function, that call's time; then the fused
+   iteration's two kernels on the fullevent and the hit graph, each with
+   and without its pad edges: checked, two launches equal bit for bit,
+   and timed;
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
@@ -85,13 +90,16 @@ NODE_N_EDGE = 331_264
 SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
            "bwd": "gnn_fpga_tpu_torch/csrc/spmm_bwd.cu",
            "ops": "gnn_fpga_tpu_torch/csrc/spmm_ops.cu",
-           "gather": "gnn_fpga_tpu_torch/csrc/gather.cu"}
+           "gather": "gnn_fpga_tpu_torch/csrc/gather.cu",
+           "iter_fwd": "gnn_fpga_tpu_torch/csrc/iteration_fwd.cu",
+           "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
 KERNELS = {
-    "iteration_pair": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
+    "iteration_pair": ("iter_fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
     "aggregate_pair": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:678"),
     "gather_pair": ("gather", "gnn_fpga_tpu/ops/pallas/spmm.py:950"),
-    "iteration_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
+    "iteration_pair_bwd": ("iter_bwd",
+                           "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
     "aggregate_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:806"),
     "gather_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
     "spmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
@@ -137,6 +145,9 @@ BF16_PROB_MAX_ABS, BF16_PROB_MEAN_ABS = 3e-2, 3e-3
 # (1% of messages dropped; a node head summing in bf16) 2.2e-2 and above.
 F32_GRAD_TOL = (2e-3, 1e-5)
 BF16_GRAD_REL = 1.5e-2
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
+# memory, and f32 outside the tensor cores, which these kernels use.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 
 
 def fail(msg: str):
@@ -187,8 +198,13 @@ def make_request(seed: int, device, hits: bool = False):
     return G.attach_plans(g).to(device)
 
 
-def time_ms(fn, n=20, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``n`` launches (CUDA events)."""
+def time_ms(fn, n=20, warmup=3, graph=True) -> tuple:
+    """``(device, dispatched)``: mean ms of one call of ``fn`` over ``n``
+    calls.  Device: the calls captured once in a CUDA graph and the graph
+    replayed between two CUDA events, which leaves the host's dispatch
+    out; a call that cannot be captured raises (None with ``graph=False``).
+    Dispatched: the calls issued one by one between two CUDA events, which
+    takes the host's dispatch in wherever it is slower than the card."""
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -197,7 +213,46 @@ def time_ms(fn, n=20, warmup=3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    dispatched = start.elapsed_time(end) / n
+    if not graph:
+        return None, dispatched
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        for _ in range(n):
+            fn()
+    cuda_graph.replay()
+    start.record()
+    cuda_graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, dispatched
+
+
+def fmt_ms(t) -> str:
+    """A :func:`time_ms` result as 'device / dispatched' ms."""
+    device, dispatched = t
+    return (f"{'n/a' if device is None else f'{device:.4f}'} / "
+            f"{dispatched:.4f} dispatched")
+
+
+def device_ms(*times) -> float:
+    """The mean device time of :func:`time_ms` results."""
+    return sum(d for d, _ in times) / len(times)
+
+
+def library_ms(fn) -> tuple:
+    """``(ms, timer)`` of one library call: its device time from a CUDA
+    graph (timer ``"cuda_graph"``), or, for a call that synchronises with
+    the host and so cannot be captured, its dispatched time (timer
+    ``"dispatched"``, which takes the host in)."""
+    try:
+        return device_ms(time_ms(fn)), "cuda_graph"
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        print(f"  (library call not captured: "
+              f"{str(err).splitlines()[0][:80]}; timed dispatched)",
+              flush=True)
+        return time_ms(fn, graph=False)[1], "dispatched"
 
 
 def compare(name, got, ref, rtol, atol) -> float:
@@ -226,6 +281,100 @@ def exact(name, got, ref) -> float:
     return max_abs
 
 
+def kernel_work(name, dt, v, e, d, hdim) -> tuple:
+    """(bytes, f32 operations) that one call of kernel ``name`` must do on
+    ``v`` nodes and ``e`` edges (rows read, for the segment sum) with
+    tables of ``d`` and ``hdim`` columns in ``dt``: each input read once
+    and each output written once (edge weights, masks and sddmm outputs
+    f32, one int32 sender and receiver an edge, or the segment sum's
+    offsets), and the arithmetic of the function, each edge's score once
+    (a tanh or exp counted as one operation)."""
+    t = torch.empty((), dtype=dt).element_size()
+    tab = lambda w: v * w * t
+    ids, ev = 8 * e, 4 * e
+    return {
+        "iteration_pair": (2 * tab(hdim) + 3 * tab(d) + ev + ids,
+                           e * (6 * hdim + 4 * d + 4)),
+        "aggregate_pair": (3 * tab(d) + ev + ids, 4 * e * d),
+        "gather_pair": (2 * tab(hdim) + ids + e * hdim * t, e * hdim),
+        "iteration_pair_bwd": (4 * tab(hdim) + 4 * tab(d) + ev + ids,
+                               e * (13 * hdim + 8 * d + 8)),
+        "aggregate_pair_bwd": (4 * tab(d) + 2 * ev + ids, 8 * e * d),
+        "gather_pair_bwd": (e * hdim * t + ids + 2 * tab(hdim),
+                            2 * e * hdim),
+        "spmm": (2 * tab(d) + ev + ids, 2 * e * d),
+        "sddmm": (2 * tab(d) + ids + ev, 2 * e * d),
+        "sddmm_dual": (4 * tab(d) + ids + ev, 4 * e * d),
+        "sorted_segment_sum": (e * d * t + 4 * (v + 1) + tab(d), e * d),
+    }[name]
+
+
+def bound_ms(name, dt, *shape) -> tuple:
+    """The least time the card could take for :func:`kernel_work`, and
+    what sets it: ``(ms, "bytes" or "operations")``."""
+    nbytes, ops = kernel_work(name, dt, *shape)
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def library_calls(g, t, w, seg, n_kept) -> dict:
+    """One PyTorch call for each kernel that computes its function on the
+    same inputs, where there is one, timed beside the kernel and never
+    called by the port.  Sparse operands (CSR matrices of the plans, the
+    stacked ``[pa; pb]``) are built here, outside the timed call; a CSR
+    matrix holds its weights in the tables' dtype.  A call the installed
+    PyTorch refuses for the dtype is left out."""
+    import torch.nn.functional as F
+
+    plans, recv, send = g.plans, g.plans.recv, g.plans.send
+    dt, dev = t["h"].dtype, g.x.device
+    i64 = lambda a: a.long()
+    csr = lambda crow, col, val, size: torch.sparse_csr_tensor(
+        i64(crow), i64(col), val, size=size, device=dev)
+    w_r = w.index_select(0, recv.order.long()).to(dt)
+    w_s = w.index_select(0, send.order.long()).to(dt)
+    adj_pair = csr(torch.cat([recv.seg_ptr, send.seg_ptr[1:] + N_EDGE]),
+                   torch.cat([recv.sorted_oth, send.sorted_oth]),
+                   torch.cat([w_r, w_s]), (2 * N_NODE, N_NODE))
+    adj_recv = csr(recv.seg_ptr, recv.sorted_oth, w_r, (N_NODE, N_NODE))
+    inc = csr(torch.cat([send.seg_ptr, recv.seg_ptr[1:] + N_EDGE]),
+              torch.cat([send.order, recv.order]),
+              torch.ones(2 * N_EDGE, dtype=dt, device=dev),
+              (2 * N_NODE, N_EDGE))
+    pattern = csr(recv.seg_ptr, recv.sorted_oth,
+                  torch.zeros(N_EDGE, dtype=dt, device=dev),
+                  (N_NODE, N_NODE))
+    h_t = t["h"].t().contiguous()
+    stacked = torch.cat([t["pa"], t["pb"]])
+    pair_ids = torch.stack([g.senders.long(), g.receivers.long() + N_NODE], 1)
+    lengths = seg.ptr.diff().long()
+    kept = t["m_sorted"][:n_kept]
+    calls = {
+        "aggregate_pair": lambda: torch.sparse.mm(adj_pair, t["h"]),
+        "spmm": lambda: torch.sparse.mm(adj_recv, t["h"]),
+        "gather_pair_bwd": lambda: torch.sparse.mm(inc, t["g"]),
+        "sddmm": lambda: torch.sparse.sampled_addmm(pattern, t["g_mi"], h_t,
+                                                    beta=0.0),
+        "gather_pair": lambda: F.embedding_bag(pair_ids, stacked,
+                                               mode="sum"),
+        "sorted_segment_sum": lambda: torch.segment_reduce(
+            kept, "sum", lengths=lengths),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            print(f"  library call for {name} in {dt}: refused "
+                  f"({str(err).splitlines()[0][:100]})", flush=True)
+            continue
+        out[name] = call
+    return out
+
+
 def phase_kernels(g) -> dict:
     """Every kernel against its plain version at the main-path shapes, on
     random tables and gradients over the main path's topology (~1% masked
@@ -250,14 +399,17 @@ def phase_kernels(g) -> dict:
     print(f"kernels: V={N_NODE} E={N_EDGE} D={d} H={hdim}, "
           f"{int((em == 0).sum())} masked edges, "
           f"{int((ids == N_NODE).sum())} dropped segment ids", flush=True)
+    n_kept = int(seg.ptr[-1])
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         t = {k: v.to(dt) for k, v in tabs.items()}
         t["m_sorted"] = t["m"].index_select(0, seg.order.long())
         tag = str(dt).replace("torch.", "")
+        libs = library_calls(g, t, w, seg, n_kept)
         ip = (t["pa"], t["pb"], t["h"], em_sorted, t["w2"], t["b1"], t["b2"])
         ip_ref = ip + (recv.sorted_oth, recv.sorted_seg, N_NODE)
         grads = (t["g_mi"], t["g_mo"])
+        sig = spmm.iteration_pair_fwd(*ip, plans)[2]   # the bwd's input
         runs = {
             "gather_pair": (
                 lambda: (spmm.gather_pair_fwd(t["pa"], t["pb"], s, r),),
@@ -273,7 +425,7 @@ def phase_kernels(g) -> dict:
                                                       N_NODE),
                 ("mi", "mo")),
             "iteration_pair_bwd": (
-                lambda: spmm.iteration_pair_bwd(*ip, *grads, plans),
+                lambda: spmm.iteration_pair_bwd(*ip, *grads, plans, sig),
                 lambda: spmm.iteration_pair_bwd_reference(
                     *ip, *grads, recv.sorted_oth, recv.sorted_seg, N_NODE),
                 ("dh", "dpa", "dpb", "dw2", "db1", "db2")),
@@ -337,11 +489,95 @@ def phase_kernels(g) -> dict:
                                        atol))
             # plain, kernel, kernel, plain: one card, interleaved
             p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            print(f"  {name} {tag}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}) "
-                  f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})", flush=True)
+            ms, plain_ms = device_ms(k1, k2), device_ms(p1, p2)
+            print(f"  {name} {tag}: kernel {ms:.4f} ms "
+                  f"({fmt_ms(k1)}, {fmt_ms(k2)}) plain {plain_ms:.4f} ms "
+                  f"({fmt_ms(p1)}, {fmt_ms(p2)})", flush=True)
             out[(name, dt)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            if name not in KERNELS:
+                continue
+            lib_ms, lib_timer = (library_ms(libs[name]) if name in libs
+                                 else (None, None))
+            bound, by = bound_ms(
+                name, dt, N_NODE,
+                n_kept if name == "sorted_segment_sum" else N_EDGE, d, hdim)
+            print(f"  {name} {tag}: bound {bound:.4f} ms ({by}), one "
+                  f"PyTorch call "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}",
+                  flush=True)
+            out[(name, dt)].update(bound_ms=bound, bound_by=by,
+                                   library_ms=lib_ms, timer="cuda_graph",
+                                   library_timer=lib_timer)
     return out
+
+
+def without_pad_edges(g):
+    """``g`` with its masked (pad) edges taken out, plans rebuilt."""
+    from gnn_fpga_tpu_torch.core import graph as G
+
+    keep = g.edge_mask > 0
+    return G.attach_plans(g.replace(
+        senders=g.senders[keep], receivers=g.receivers[keep], y=g.y[keep],
+        edge_mask=g.edge_mask[keep], plans=None))
+
+
+def phase_iteration(g_full) -> None:
+    """The fused iteration's forward and backward kernels in bf16 on the
+    fullevent graph and the hit graph, each with and without its pad
+    edges (all on one pad node): against their plain versions, two
+    launches bit for bit, and timed (kernel, kernel)."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    dev = g_full.x.device
+    gen = torch.Generator().manual_seed(99)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(
+        dev, torch.bfloat16)
+    hdim = HIDDEN
+    print("iteration kernels, bf16, with and without the pad edges:",
+          flush=True)
+    for label, g, d in (("fullevent", g_full, HIDDEN + INPUT_DIM),
+                        ("hit", make_request(0, dev, hits=True),
+                         NODE_HIDDEN + NODE_INPUT_DIM)):
+        tabs = dict(pa=rnd(N_NODE, hdim), pb=rnd(N_NODE, hdim),
+                    h=rnd(N_NODE, d), w2=rnd(hdim) * 0.25, b1=rnd(hdim),
+                    b2=rnd(1), g_mi=rnd(N_NODE, d), g_mo=rnd(N_NODE, d))
+        for pad, gg in (("pad", g), ("no pad", without_pad_edges(g))):
+            recv = gg.plans.recv
+            ems = spmm.sort_edge_weights(gg.edge_mask, recv)
+            ip = tuple(tabs[k] for k in ("pa", "pb", "h")) + (ems,) + tuple(
+                tabs[k] for k in ("w2", "b1", "b2"))
+            grads = (tabs["g_mi"], tabs["g_mo"])
+            ids = (recv.sorted_oth, recv.sorted_seg, N_NODE)
+            sig = spmm.iteration_pair_fwd(*ip, gg.plans)[2]
+            runs = {
+                "iteration_pair": (
+                    lambda: spmm.iteration_pair(*ip, gg.plans),
+                    lambda: spmm.iteration_pair_reference(*ip, *ids),
+                    ("mi", "mo")),
+                "iteration_pair_bwd": (
+                    lambda: spmm.iteration_pair_bwd(*ip, *grads, gg.plans,
+                                                    sig),
+                    lambda: spmm.iteration_pair_bwd_reference(*ip, *grads,
+                                                              *ids),
+                    ("dh", "dpa", "dpb", "dw2", "db1", "db2")),
+            }
+            what = f"{label} ({pad}, E={gg.n_edge}, D={d}, " \
+                   f"{gg.plans.items.n_split} split nodes)"
+            for name, (kern, plain, sides) in runs.items():
+                first, again, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    fail(f"{name} {what}: two launches differ")
+                rtol, atol = KERNEL_TOL[torch.bfloat16]
+                for side, a, b in zip(sides, first, ref):
+                    if side in ("dw2", "db1", "db2"):
+                        atol = (PARAM_SUM_ATOL[torch.bfloat16]
+                                * b.abs().max().item())
+                    compare(f"{name} {what} {side}", a, b, rtol, atol)
+                k1, k2 = time_ms(kern), time_ms(kern)
+                print(f"  {name} {what}: kernel {device_ms(k1, k2):.4f} ms "
+                      f"({fmt_ms(k1)}, {fmt_ms(k2)}); two launches bit for "
+                      f"bit", flush=True)
 
 
 def segment_ids(g, gen):
@@ -971,6 +1207,7 @@ def main():
     print(f"graphs: {N_REQUESTS} packed graphs built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = phase_kernels(graphs[0])
+    phase_iteration(graphs[0])
     paths = (phase_serving(device, graphs, args.profile),
              phase_training(device, graphs, args.profile),
              phase_ops(graphs[0]), phase_blocked(device, args.profile),

@@ -1,5 +1,5 @@
 // Helpers shared by the message-passing kernels (spmm.cu, spmm_bwd.cu,
-// spmm_ops.cu, gather.cu).
+// spmm_ops.cu, gather.cu, iteration_fwd.cu, iteration_bwd.cu).
 
 #pragma once
 
@@ -26,6 +26,14 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+
+// N consecutive elements of a row, loaded and stored as one access of
+// N * sizeof(T) bytes (the pointer must be aligned to that).
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Vec {
+  static constexpr int n = N;
+  T v[N];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,8 +64,8 @@ __device__ __forceinline__ void store_row(T* row, const float (&src)[kC],
 }
 
 // One CSR direction: segment offsets, gathered endpoint per sorted edge,
-// and where each sorted edge's weight lives in the weight vector (null:
-// the weight vector is already in this plan's order).
+// and where each sorted edge's weight lives in the weight vector (the
+// plan's order; null where a kernel reads no weights).
 struct Side {
   const int32_t* seg_ptr;  // [V + 1]
   const int32_t* oth;      // [E]

@@ -55,10 +55,7 @@ constexpr int kUnroll = 4;
 
 // 16 bytes of a row: the unit of the vector path.
 template <typename T>
-struct alignas(16) Pack {
-  static constexpr int n = 16 / sizeof(T);
-  T v[n];
-};
+using Pack = gnn::Vec<T, 16 / sizeof(T)>;
 
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);

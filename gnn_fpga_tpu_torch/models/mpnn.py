@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from gnn_fpga_tpu_torch.core.device import default_device
 from gnn_fpga_tpu_torch.core.graph import Graph, unbatch_graphs
 from gnn_fpga_tpu_torch.ops import blocked as blk
 from gnn_fpga_tpu_torch.ops import dense_incidence as dinc
@@ -155,7 +156,10 @@ def _fan_ins(module: nn.Module) -> dict:
 
 
 class _Model(nn.Module):
-    """What the three heads share: the input layer and the initialisation."""
+    """What the three heads share: the input layer and the initialisation.
+    Each head's parameters go on ``device``, the CUDA device when it is
+    None (:func:`~gnn_fpga_tpu_torch.core.device.default_device`: with no
+    card that raises; pass ``device="cpu"`` for the CPU)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -179,6 +183,7 @@ class SegmentClassifier(_Model):
     def __init__(self, cfg: SegmentClassifierConfig,
                  generator: torch.Generator, device=None):
         super().__init__(cfg)
+        device = default_device(device)
         d = cfg.input_dim + cfg.hidden_dim
         self.input = _Linear(cfg.input_dim, cfg.hidden_dim, cfg.dtype, device)
         self.edge = EdgeNetwork(d, cfg.hidden_dim, cfg.dtype, device)
@@ -199,6 +204,7 @@ class SegmentClassifierUnshared(_Model):
     def __init__(self, cfg: SegmentClassifierConfig,
                  generator: torch.Generator, device=None):
         super().__init__(cfg)
+        device = default_device(device)
         d = cfg.input_dim + cfg.hidden_dim
         h = cfg.hidden_dim
         self.input = _Linear(cfg.input_dim, h, cfg.dtype, device)
@@ -221,6 +227,7 @@ class NodeClassifier(_Model):
     def __init__(self, cfg: NodeClassifierConfig,
                  generator: torch.Generator, device=None):
         super().__init__(cfg)
+        device = default_device(device)
         d = cfg.input_dim + cfg.hidden_dim
         self.input = _Linear(cfg.input_dim, cfg.hidden_dim, cfg.dtype, device)
         self.edge = EdgeNetwork(d, cfg.hidden_dim, cfg.dtype, device)

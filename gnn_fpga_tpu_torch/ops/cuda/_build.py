@@ -27,12 +27,13 @@ BUILD_DIR = _PKG.parent / "build" / "gnn_fpga_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gnn_iteration_pair_fwd": ([_I] * 4 + [_P] * 15, _I),
+    "gnn_iteration_pair_fwd": ([_I] * 8 + [_P] * 12 + [_I] * 2 + [_P, _I]
+                               + [_P] * 6, _I),
     "gnn_aggregate_pair_fwd": ([_I] * 3 + [_P] * 11, _I),
-    "gnn_iteration_pair_bwd_scratch": ([_I, _I], _L),
-    "gnn_iteration_pair_bwd": ([_I] * 4 + [_P] * 18 + [_L] + [_P] * 4, _I),
+    "gnn_iteration_pair_bwd": ([_I] * 12 + [_P] * 13 + [_I] * 2 + [_P, _I]
+                               + [_P] * 13, _I),
     "gnn_aggregate_pair_bwd": ([_I] * 3 + [_P] * 13, _I),
     "gnn_gather_pair_bwd": ([_I] * 3 + [_P] * 8, _I),
     "gnn_gather_pair_fwd": ([_I] * 4 + [_P] * 6, _I),

@@ -6,20 +6,22 @@ edge-weighted aggregations
     mi[n] = sum_{e: recv[e]==n} w[e] * h[send[e]]
     mo[n] = sum_{e: send[e]==n} w[e] * h[recv[e]]
 
-run on the card as hand-written CUDA kernels (``csrc/spmm.cu``):
+run on the card as hand-written CUDA kernels:
 
-- :func:`iteration_pair` computes the edge weights itself from the edge
-  MLP (``w = sigmoid(tanh((pa[s] + pb[r]) * em + b1) . w2 + b2) * em``),
-  so no ``[E, H]`` intermediate exists;
-- :func:`aggregate_pair` takes the weights as given;
+- :func:`iteration_pair` (``csrc/iteration_fwd.cu``) computes the edge
+  weights itself from the edge MLP (``w = sigmoid(tanh((pa[s] + pb[r]) *
+  em + b1) . w2 + b2) * em``), once per edge, so no ``[E, H]``
+  intermediate exists;
+- :func:`aggregate_pair` (``csrc/spmm.cu``) takes the weights as given;
 - :func:`gather_pair` is the edge MLP's first layer in projection form,
   ``pa[s] + pb[r]`` (the final edge layer, and every unfused iteration);
   its forward is :func:`gather_pair_fwd` (``csrc/gather.cu``), a row
   gather in edge order that needs no plan.
 
-Each is a ``torch.autograd.Function`` whose backward is a kernel too
-(``csrc/spmm_bwd.cu``): :func:`iteration_pair_bwd`,
-:func:`aggregate_pair_bwd` and :func:`gather_pair_bwd`.  The backwards
+Each is a ``torch.autograd.Function`` whose backward is a kernel too:
+:func:`iteration_pair_bwd` (``csrc/iteration_bwd.cu``),
+:func:`aggregate_pair_bwd` and :func:`gather_pair_bwd`
+(``csrc/spmm_bwd.cu``).  The backwards
 save only the V-sized inputs and recompute per-edge values, as the JAX
 package's VJPs do.
 
@@ -30,9 +32,11 @@ VJP, ``dh`` through the transpose plan and ``dw`` through :func:`sddmm`),
 
 The plans keep the JAX package's receiver-sorted and sender-sorted edge
 orders, from a stable argsort, and add CSR row pointers, so each node's
-row is reduced by one warp without atomics.  The TPU's gather windows,
-prebuilt one-hots and tile padding are not needed: Hopper gathers rows
-natively.
+row is reduced by one warp without atomics; the fused iteration's kernels
+walk work items of at most :data:`ITEM_EDGES` edges instead
+(:class:`IterItems`), so that no long segment sets a tail.  The TPU's
+gather windows, prebuilt one-hots and tile padding are not needed: Hopper
+gathers rows natively.
 
 Each kernel wrapper runs its kernel on CUDA tensors and its plain PyTorch
 version (``*_reference``) on CPU tensors, and counts its kernel launches
@@ -42,6 +46,7 @@ in ``<wrapper>.launches`` (:func:`launch_counts`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -83,6 +88,51 @@ class EdgePlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class IterItems:
+    """Work items of the fused iteration kernels (:func:`iteration_pair`
+    and :func:`iteration_pair_bwd`), built once per topology.
+
+    Each direction's CSR segments are cut into items of at most
+    :data:`ITEM_EDGES` consecutive sorted edges; a node without edges in a
+    direction still has one empty item there, so that its row is written.
+    A node is *split* when it has more than one item in either direction.
+    All arrays int32:
+
+      items:  [I, 4]  (beg, end, node, slot): item i sums sorted positions
+                      [beg, end) of its direction; items [0, n_recv) are
+                      the recv plan's (``mi``), the rest the send plan's
+                      (``mo``).  In each direction the split nodes' items
+                      come first, so that the longest walks start first,
+                      then the other nodes', each part in node order and
+                      a node's items in edge order.  ``slot`` is -1 when
+                      the item writes its node's output row itself, else
+                      the f32 partial row it writes for a split node.
+      splits: [S, 4]  (node, slot_beg, slot_mid, slot_end) of each split
+                      node: its recv items' partial rows are slots
+                      [slot_beg, slot_mid), its send items' [slot_mid,
+                      slot_end), each in item order; a combine pass sums
+                      them in that order.
+    """
+
+    items: torch.Tensor
+    splits: torch.Tensor
+    n_recv: int
+    n_slot: int
+
+    @property
+    def n_item(self) -> int:
+        return self.items.shape[0]
+
+    @property
+    def n_split(self) -> int:
+        return self.splits.shape[0]
+
+    def to(self, device) -> "IterItems":
+        return dataclasses.replace(self, items=self.items.to(device),
+                                   splits=self.splits.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
 class AggPlans:
     """The (receiver-sorted, sender-sorted) plan pair of a graph.
 
@@ -90,15 +140,17 @@ class AggPlans:
     is its transpose (``mo``).  ``send_in_recv[j]`` is the position in the
     recv order of the ``j``-th send-sorted edge: it lets the send side read
     weights that arrive in recv order (:func:`sort_edge_weights`).
+    ``items`` are the fused iteration kernels' work items.
     """
 
     recv: EdgePlan
     send: EdgePlan
     send_in_recv: torch.Tensor
+    items: IterItems
 
     def to(self, device) -> "AggPlans":
         return AggPlans(self.recv.to(device), self.send.to(device),
-                        self.send_in_recv.to(device))
+                        self.send_in_recv.to(device), self.items.to(device))
 
 
 def build_edge_plan(seg_ids, oth_ids, n_node: int) -> EdgePlan:
@@ -122,12 +174,176 @@ def build_edge_plan(seg_ids, oth_ids, n_node: int) -> EdgePlan:
                     n_node=int(n_node), n_edge=e)
 
 
+# Edges an item of IterItems holds at most.  The packed fullevent graph
+# has ~11 edges a node and direction and one pad node with 160 (208 on the
+# hit graphs): 32 leaves nearly every real node in one item and cuts the
+# pad node into 5-7 items, each about as long as a dense real node's walk.
+ITEM_EDGES = 32
+
+
+def _direction_items(ptr: np.ndarray):
+    """One direction's items, in node order: ``(node, beg, end, rank)``
+    (``rank``: the item's place among its node's items) and each node's
+    first item and item count."""
+    deg = np.diff(ptr)
+    count = np.maximum(1, -(-deg // ITEM_EDGES))
+    first = np.cumsum(count) - count
+    node = np.repeat(np.arange(len(deg)), count)
+    rank = np.arange(len(node)) - first[node]
+    beg = ptr[node] + rank * ITEM_EDGES
+    end = np.minimum(beg + ITEM_EDGES, ptr[node + 1])
+    return node, beg, end, rank, first, count
+
+
+def build_iter_items(recv_ptr, send_ptr) -> IterItems:
+    """Host-side (numpy) :class:`IterItems` from the two directions' CSR
+    offsets ``[V + 1]``."""
+    rn, rb, re, r_rank, _, rc = _direction_items(
+        np.asarray(recv_ptr, np.int64))
+    sn, sb, se, s_rank, _, sc = _direction_items(
+        np.asarray(send_ptr, np.int64))
+    n_recv = len(rn)
+    is_split = (rc > 1) | (sc > 1)
+    split = np.flatnonzero(is_split)
+    # a split node's partial rows: its recv items', then its send items'
+    per = rc[split] + sc[split]
+    slot_beg = np.cumsum(per) - per
+    slot_mid = slot_beg + rc[split]
+    first_slot_r = np.full(len(rc), -1, np.int64)
+    first_slot_s = np.full(len(sc), -1, np.int64)
+    first_slot_r[split], first_slot_s[split] = slot_beg, slot_mid
+    slot_r = np.where(is_split[rn], first_slot_r[rn] + r_rank, -1)
+    slot_s = np.where(is_split[sn], first_slot_s[sn] + s_rank, -1)
+    split_first = lambda node: np.argsort(~is_split[node], kind="stable")
+    r_ord, s_ord = split_first(rn), split_first(sn)
+    items = np.stack([np.concatenate([rb[r_ord], sb[s_ord]]),
+                      np.concatenate([re[r_ord], se[s_ord]]),
+                      np.concatenate([rn[r_ord], sn[s_ord]]),
+                      np.concatenate([slot_r[r_ord], slot_s[s_ord]])], 1)
+    as_t = lambda a, w: torch.from_numpy(
+        np.asarray(a, np.int64).reshape(-1, w).astype(np.int32))
+    return IterItems(
+        items=as_t(items, 4),
+        splits=as_t(np.stack([split, slot_beg, slot_mid, slot_beg + per], 1),
+                    4),
+        n_recv=n_recv, n_slot=int(per.sum()))
+
+
 def build_agg_plans(senders, receivers, n_node: int) -> AggPlans:
-    """Both aggregation directions of a graph topology (host-side)."""
+    """Both aggregation directions of a graph topology (host-side), with
+    the fused iteration kernels' work items (:class:`IterItems`)."""
     recv = build_edge_plan(receivers, senders, n_node)
     send = build_edge_plan(senders, receivers, n_node)
     send_in_recv = recv.inv_order.index_select(0, send.order.long())
-    return AggPlans(recv=recv, send=send, send_in_recv=send_in_recv)
+    return AggPlans(recv=recv, send=send, send_in_recv=send_in_recv,
+                    items=build_iter_items(recv.seg_ptr.numpy(),
+                                           send.seg_ptr.numpy()))
+
+
+_THREADS = 256       # threads a block (csrc/common.cuh kThreads)
+_EDGE_UNROLL = 4     # edges a lane keeps in flight (csrc/iteration.cuh)
+# Shared memory a warp of the backward's walks stages its chunk's rows in:
+# eight warps a block take 48 KB, the most a block gets without opting in.
+_STAGE_BYTES = 6 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class IterLaunch:
+    """Launch arguments of the fused iteration kernels
+    (``csrc/iteration_fwd.cu``, ``csrc/iteration_bwd.cu``) for one call.
+
+    ``vec_h``: H rows (``pa``, ``pb``, ``w2``, ``b1``) read as 16-byte
+    items, at most 32 a row; ``vec_d``: D rows (``h``, ``g_mi``,
+    ``g_mo``) as element pairs; else one element an item.  In the
+    forward's score pass H rows lie across groups of ``2 ** log_lanes``
+    lanes, as many as the row has items (at most 32); a group takes an
+    edge, each lane keeping ``_EDGE_UNROLL`` edges in flight, in
+    ``edge_blocks`` blocks of ``_THREADS`` threads.  In the backward's
+    passes a group of ``2 ** bwd_log_lanes`` lanes takes an edge with both
+    its H rows, as items of ``bwd_h_bytes`` (16 or 8; 0: one element an
+    item), one a lane, and its D rows, at most 8 items a lane; a warp's
+    groups take an item's edges in turn, in
+    chunks of ``recv_chunk`` (recv pass: an H and two D rows an edge) and
+    ``send_chunk`` edges (send pass: an H and a D row), whose rows it
+    stages in shared memory, each H row in a slot of ``slot_h`` bytes and
+    each D row in one of ``slot_d``.
+    """
+
+    vec_h: bool
+    vec_d: bool
+    log_lanes: int
+    edge_blocks: int
+    bwd_h_bytes: int
+    bwd_log_lanes: int
+    recv_chunk: int
+    send_chunk: int
+    slot_h: int
+    slot_d: int
+
+
+@functools.lru_cache(maxsize=256)
+def iteration_launch(n_edge: int, d: int, hdim: int, dtype,
+                     aligned_h: bool = True,
+                     aligned_d: bool = True) -> IterLaunch:
+    """The :class:`IterLaunch` of a call with ``n_edge`` edges, ``[V, d]``
+    node tables and ``[V, hdim]`` projections in ``dtype``; ``aligned_h``
+    / ``aligned_d``: the H tables start on 16 bytes, the D tables on two
+    elements.  At the fullevent widths (H = 64, D = 66): 8 lanes an edge
+    in bf16, one 16-byte item each (and in the backward 5 of the D row's
+    33 pairs); 16 in f32.  The backward takes the widest H items that
+    still fill the lanes its D rows need: the hit graph's odd D = 67 needs
+    16 lanes in bf16, so 8-byte items."""
+    per = 16 // dtype.itemsize
+    vec_h = bool(aligned_h and hdim % per == 0 and hdim // per <= 32)
+    vec_d = bool(aligned_d and d % 2 == 0)
+    row_h = hdim // per if vec_h else hdim
+    row_d = d // 2 if vec_d else d
+    log_lanes = min(5, (row_h - 1).bit_length())
+    per_block = (_THREADS >> log_lanes) * _EDGE_UNROLL
+    # a staged row takes its bytes and the 2 it may start into its first
+    # 4-byte word, rounded up to 16 bytes
+    slot = lambda width: -(-(width * dtype.itemsize + 4) // 16) * 16
+    slot_h, slot_d = slot(hdim), slot(d)
+    need_d = (-(-row_d // 8) - 1).bit_length()   # log2 lanes a D row needs
+    bwd_h_bytes, row_hb = 0, hdim
+    for nbytes in (16, 8):
+        per_b = nbytes // dtype.itemsize
+        if aligned_h and hdim % per_b == 0 and hdim // per_b <= 32:
+            bwd_h_bytes, row_hb = nbytes, hdim // per_b
+            if (row_hb - 1).bit_length() >= need_d:
+                break
+    bwd_log_lanes = max(min(5, (row_hb - 1).bit_length()), need_d)
+    groups = 32 >> bwd_log_lanes
+
+    def chunk(edge_bytes):
+        """Edges a chunk: as many as fit, a multiple of the groups."""
+        c = max(1, min(32, _STAGE_BYTES // edge_bytes))
+        return c - c % groups if c >= groups else c
+
+    return IterLaunch(vec_h=vec_h, vec_d=vec_d, log_lanes=log_lanes,
+                      edge_blocks=-(-n_edge // per_block),
+                      bwd_h_bytes=bwd_h_bytes, bwd_log_lanes=bwd_log_lanes,
+                      recv_chunk=chunk(slot_h + 2 * slot_d),
+                      send_chunk=chunk(slot_h + slot_d),
+                      slot_h=slot_h, slot_d=slot_d)
+
+
+def walk_blocks(n_item: int, sm_count: int) -> int:
+    """Blocks of eight warps for the backward's send pass, whose warps
+    stride over ``n_item`` items: two blocks an SM (the pass's register
+    budget), fewer when there are fewer items, none without items.  Each
+    warp writes one row of parameter partials, so fewer warps mean fewer
+    partials to sum."""
+    return min(-(-n_item // 8), 2 * sm_count)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(tables, bytes_: int) -> bool:
+    return all(t.data_ptr() % bytes_ == 0 for t in tables)
 
 
 def sort_edge_weights(w: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
@@ -297,6 +513,9 @@ def _check_iteration(name, pa, pb, h, em_sorted, w2, b1, b2, plans, **grads):
                 **grads)
     _check_cuda(dev, torch.float32, em_sorted=em_sorted)
     _check_plans(plans, dev, v)
+    it = plans.items
+    _check_cuda(dev, torch.int32, sorted_seg=plans.recv.sorted_seg,
+                items=it.items, splits=it.splits)
 
 
 def _raise_on_error(code: int, name: str):
@@ -322,26 +541,46 @@ def _lib():
 # Kernel wrappers: CPU tensors take the plain version, CUDA tensors launch
 # ---------------------------------------------------------------------------
 
-def _iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2, plans):
-    if h.device.type == "cpu":
+def iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2, plans: AggPlans):
+    """:func:`iteration_pair`'s forward, no VJP attached: ``(mi, mo,
+    sig)``, ``sig`` the [E] f32 edge scores ``sigmoid(z . w2 + b2)`` in the
+    recv plan's order, which :func:`iteration_pair_bwd` takes on the card
+    (None on the CPU, whose backward recomputes them).  On CUDA tensors a
+    score pass over the edges, a walk over the work items and, when a node
+    is split, a combine pass: 2-3 CUDA launches, counted as one in
+    ``iteration_pair.launches``."""
+    if _kernel_device(h, "iteration_pair") is None:
         r = plans.recv
         mi, mo = iteration_pair_reference(pa, pb, h, em_sorted, w2, b1, b2,
                                           r.sorted_oth, r.sorted_seg,
                                           h.shape[0])
-        return mi.to(h.dtype), mo.to(h.dtype)
+        return mi.to(h.dtype), mo.to(h.dtype), None
+    _check_iteration("iteration_pair", pa, pb, h, em_sorted, w2, b1, b2,
+                     plans)
     v, d = h.shape
+    hdim = pa.shape[1]
+    n_edge = plans.recv.n_edge
+    it = plans.items
+    la = iteration_launch(n_edge, d, hdim, h.dtype,
+                          _aligned((pa, pb, w2, b1), 16),
+                          _aligned((h,), 2 * h.element_size()))
+    f32 = dict(dtype=torch.float32, device=h.device)
+    e_sorted, sig = torch.empty(n_edge, **f32), torch.empty(n_edge, **f32)
+    partial = torch.empty((max(it.n_slot, 1), d), **f32)
     mi = torch.empty_like(h)
     mo = torch.empty_like(h)
     code = _lib().gnn_iteration_pair_fwd(
-        _DTYPE_CODES[h.dtype], v, d, pa.shape[1],
-        _ptr(pa), _ptr(pb), _ptr(h), _ptr(em_sorted),
-        _ptr(plans.send_in_recv), _ptr(w2), _ptr(b1), _ptr(b2),
-        _ptr(plans.recv.seg_ptr), _ptr(plans.recv.sorted_oth),
-        _ptr(plans.send.seg_ptr), _ptr(plans.send.sorted_oth),
+        _DTYPE_CODES[h.dtype], n_edge, d, hdim, int(la.vec_h),
+        int(la.vec_d), la.log_lanes, la.edge_blocks, _ptr(pa), _ptr(pb),
+        _ptr(h), _ptr(em_sorted), _ptr(plans.send_in_recv), _ptr(w2),
+        _ptr(b1), _ptr(b2), _ptr(plans.recv.sorted_oth),
+        _ptr(plans.recv.sorted_seg), _ptr(plans.send.sorted_oth),
+        _ptr(it.items), it.n_item, it.n_recv,
+        _ptr(it.splits), it.n_split, _ptr(e_sorted), _ptr(sig), _ptr(partial),
         _ptr(mi), _ptr(mo), _stream(h))
     _raise_on_error(code, "gnn_iteration_pair_fwd")
     iteration_pair.launches += 1
-    return mi, mo
+    return mi, mo, sig
 
 
 def _aggregate_pair_fwd(h, w, plans):
@@ -366,11 +605,18 @@ def _aggregate_pair_fwd(h, w, plans):
 
 
 def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
-                       plans: AggPlans):
-    """VJP of :func:`iteration_pair` in one kernel launch (plus a small
-    fixed-order reduction of the parameter sums): ``(dh, dpa, dpb, dw2,
-    db1, db2)`` in ``h.dtype``, ``db2`` shaped like ``b2``.  ``g_mi`` and
-    ``g_mo`` are [V, D] in ``h.dtype``."""
+                       plans: AggPlans, sig_sorted=None):
+    """VJP of :func:`iteration_pair`: ``(dh, dpa, dpb, dw2, db1, db2)`` in
+    ``h.dtype``, ``db2`` shaped like ``b2``.  ``g_mi`` and ``g_mo`` are
+    [V, D] in ``h.dtype``.  ``sig_sorted``: the forward's [E] f32 edge
+    scores (:func:`iteration_pair_fwd`), required on CUDA tensors; the CPU
+    path recomputes them, as the plain version does.  On CUDA tensors: a
+    pass over the recv items (each edge's ``dlogit``, ``dpb``, the recv
+    part of ``dh``), a pass over the send items (``dpa``, ``dh``, the
+    parameter sums) and one that finishes the parameter sums and the split
+    nodes' rows (3 CUDA launches, counted as one in
+    ``iteration_pair_bwd.launches``); z is recomputed from the V-sized
+    inputs on both passes."""
     dev = _kernel_device(h, "iteration_pair_bwd")
     if dev is None:
         r = plans.recv
@@ -381,24 +627,42 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
         return tuple(t.to(h.dtype) for t in out)
     _check_iteration("iteration_pair_bwd", pa, pb, h, em_sorted, w2, b1, b2,
                      plans, g_mi=g_mi, g_mo=g_mo)
-    lib = _lib()
+    if sig_sorted is None or sig_sorted.shape != em_sorted.shape:
+        raise ValueError("iteration_pair_bwd: sig_sorted, the forward's [E] "
+                         "edge scores, is required on the card")
+    _check_cuda(dev, torch.float32, sig_sorted=sig_sorted)
     v, d = h.shape
     hdim = pa.shape[1]
+    n_edge = plans.recv.n_edge
+    it = plans.items
+    la = iteration_launch(n_edge, d, hdim, h.dtype,
+                          _aligned((pa, pb, w2, b1), 16),
+                          _aligned((h, g_mi, g_mo), 2 * h.element_size()))
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_slot = max(it.n_slot, 1)
+    e_sorted, dl = (torch.empty(n_edge, **f32),
+                    torch.empty((n_edge, 2), **f32))
+    dh_recv = torch.empty((v, d), **f32)
+    send_blocks = walk_blocks(it.n_item - it.n_recv, _sm_count(dev))
+    # one partial a column and a warp of the send pass
+    param = torch.empty((2 * hdim + 1) * max(8 * send_blocks, 1), **f32)
+    hpart, dpart = (torch.empty((n_slot, hdim), **f32),
+                    torch.empty((n_slot, d), **f32))
     dh, dpa, dpb = (torch.empty_like(h), torch.empty_like(pa),
                     torch.empty_like(pb))
     dw2, db1, db2 = (torch.empty_like(w2), torch.empty_like(b1),
                      torch.empty_like(b2))
-    n_scratch = lib.gnn_iteration_pair_bwd_scratch(v, hdim)
-    scratch = torch.empty(max(n_scratch, 1), dtype=torch.float32, device=dev)
-    code = lib.gnn_iteration_pair_bwd(
-        _DTYPE_CODES[h.dtype], v, d, hdim,
-        _ptr(pa), _ptr(pb), _ptr(h), _ptr(em_sorted),
-        _ptr(plans.send_in_recv), _ptr(w2), _ptr(b1), _ptr(b2),
-        _ptr(g_mi), _ptr(g_mo),
-        _ptr(plans.recv.seg_ptr), _ptr(plans.recv.sorted_oth),
-        _ptr(plans.send.seg_ptr), _ptr(plans.send.sorted_oth),
-        _ptr(dh), _ptr(dpa), _ptr(dpb), _ptr(scratch), scratch.numel(),
-        _ptr(dw2), _ptr(db1), _ptr(db2), _stream(h))
+    code = _lib().gnn_iteration_pair_bwd(
+        _DTYPE_CODES[h.dtype], n_edge, d, hdim, la.bwd_h_bytes,
+        int(la.vec_d), la.bwd_log_lanes, send_blocks, la.recv_chunk,
+        la.send_chunk, la.slot_h, la.slot_d, _ptr(pa), _ptr(pb),
+        _ptr(h), _ptr(em_sorted), _ptr(sig_sorted),
+        _ptr(plans.send_in_recv), _ptr(w2), _ptr(b1), _ptr(g_mi), _ptr(g_mo),
+        _ptr(plans.recv.sorted_oth),
+        _ptr(plans.send.sorted_oth), _ptr(it.items), it.n_item, it.n_recv,
+        _ptr(it.splits), it.n_split, _ptr(e_sorted), _ptr(dl),
+        _ptr(dh_recv), _ptr(param), _ptr(hpart), _ptr(dpart), _ptr(dh),
+        _ptr(dpa), _ptr(dpb), _ptr(dw2), _ptr(db1), _ptr(db2), _stream(h))
     _raise_on_error(code, "gnn_iteration_pair_bwd")
     iteration_pair_bwd.launches += 1
     return dh, dpa, dpb, dw2, db1, db2
@@ -577,16 +841,18 @@ def _grad_as(g, dtype):
 class _IterationPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pa, pb, h, em_sorted, w2, b1, b2, plans):
-        ctx.plans = plans
+        mi, mo, sig = iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2,
+                                         plans)
+        ctx.plans, ctx.sig = plans, sig      # sig: [E] f32, or None
         ctx.save_for_backward(pa, pb, h, em_sorted, w2, b1, b2)
-        return _iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2, plans)
+        return mi, mo
 
     @staticmethod
     def backward(ctx, g_mi, g_mo):
         pa, pb, h, em_sorted, w2, b1, b2 = ctx.saved_tensors
         dh, dpa, dpb, dw2, db1, db2 = iteration_pair_bwd(
             pa, pb, h, em_sorted, w2, b1, b2, _grad_as(g_mi, h.dtype),
-            _grad_as(g_mo, h.dtype), ctx.plans)
+            _grad_as(g_mo, h.dtype), ctx.plans, ctx.sig)
         return dpa, dpb, dh, None, dw2, db1, db2, None
 
 
@@ -639,16 +905,16 @@ class _Spmm(torch.autograd.Function):
 
 def iteration_pair(pa, pb, h, em_sorted, w2, b1, b2, plans: AggPlans):
     """Whole-iteration fusion: edge-MLP scoring, sigmoid and both weighted
-    aggregations in one kernel launch, forward and backward.
+    aggregations, forward and backward, each one wrapper call counted as
+    one launch (the forward is 2-3 CUDA launches, the backward 3: see
+    :func:`iteration_pair_fwd` and :func:`iteration_pair_bwd`); the
+    backward takes the edge scores the forward computed.
 
     ``pa``/``pb``: [V, H] endpoint projections (``h @ W1a`` / ``h @ W1b``,
     masks applied); ``em_sorted``: [E] f32 edge mask in the recv plan's
     order (:func:`sort_edge_weights`); ``w2``/``b1``: [H]; ``b2``: [1].
     Returns ``(mi, mo)`` [V, D] in ``h.dtype``.
     """
-    if _kernel_device(h, "iteration_pair") is not None:
-        _check_iteration("iteration_pair", pa, pb, h, em_sorted, w2, b1, b2,
-                         plans)
     return _IterationPair.apply(pa, pb, h, em_sorted, w2, b1, b2, plans)
 
 

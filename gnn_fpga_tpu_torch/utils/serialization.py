@@ -26,6 +26,8 @@ import json
 import numpy as np
 import torch
 
+from gnn_fpga_tpu_torch.core.device import default_device
+
 _PATHS_KEY = "__tree_paths__"
 
 
@@ -231,9 +233,11 @@ def load_jax_masks(masks, input_dim: int, hidden_dim: int, device=None):
     """Convert a JAX mask tree (``{"edge": {"l1", "l2"}, "node": {"l1",
     "l2"}}``, ``[in, out]``, as the JAX package's pruning writes it for a
     SegmentClassifier or a NodeClassifier) to the port's mask dict of
-    tensors."""
+    tensors on ``device`` (the CUDA device when it is None, as the models'
+    own default)."""
     d = input_dim + hidden_dim
     out = {}
+    device = default_device(device)
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
     if "edge" in masks:
         em = masks["edge"]

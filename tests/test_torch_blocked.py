@@ -74,7 +74,7 @@ def _models(seed, aggregation, input_dim=3, hidden=8, n_iters=3):
     model = tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=input_dim, hidden_dim=hidden,
                                    n_iters=n_iters, aggregation=aggregation),
-        torch.Generator().manual_seed(seed))
+        torch.Generator().manual_seed(seed), device="cpu")
     tser.load_jax_params(model, jax.tree.map(np.asarray, params))
     return cfg_j, params, model
 

@@ -127,8 +127,9 @@ def _bwd_runs(c, g_mi, g_mo, g):
     """The three backward kernels and their plain versions, as pairs of
     output tuples."""
     p = c["plans"]
-    ip = tsp.iteration_pair_bwd(c["pa"], c["pb"], c["h"], c["ems"], c["w2"],
-                                c["b1"], c["b2"], g_mi, g_mo, p)
+    args = (c["pa"], c["pb"], c["h"], c["ems"], c["w2"], c["b1"], c["b2"])
+    sig = tsp.iteration_pair_fwd(*args, p)[2]
+    ip = tsp.iteration_pair_bwd(*args, g_mi, g_mo, p, sig)
     ip_ref = tsp.iteration_pair_bwd_reference(
         c["pa"], c["pb"], c["h"], c["em"], c["w2"], c["b1"], c["b2"], g_mi,
         g_mo, c["s"], c["r"], c["v"])
@@ -209,6 +210,137 @@ def test_model_gradients_on_kernel_route_match_sparse_route(dev, fused):
     for (name, a), b in zip(model.named_parameters(), sparse.parameters()):
         torch.testing.assert_close(a.grad, b.grad, rtol=2e-3, atol=1e-5,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The fused iteration's kernels (csrc/iteration_fwd.cu, iteration_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _iter_case(seed, v, e, d, hdim, dev, dtype, hub=0, pad_only=False):
+    """Random tables and output gradients over random edges on the first
+    3/4 of the nodes, the last 20 edges masked pad edges on node v-1;
+    ``hub`` more edges all received by node 0 and sent by node 1;
+    ``pad_only``: every edge a masked pad edge on node v-1."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, max(v * 3 // 4, 1), e)
+    r = rng.integers(0, max(v * 3 // 4, 1), e)
+    em = np.ones(e, np.float32)
+    pad = slice(0, e) if pad_only else slice(max(e - 20, 0), e)
+    s[pad] = r[pad] = v - 1
+    em[pad] = 0
+    s = np.concatenate([s, np.full(hub, 1)]).astype(np.int32)
+    r = np.concatenate([r, np.zeros(hub, np.int64)]).astype(np.int32)
+    em = np.concatenate([em, np.ones(hub, np.float32)])
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    plans = tsp.build_agg_plans(s, r, v).to(dev)
+    em = torch.from_numpy(em).to(dev)
+    return dict(pa=t(v, hdim), pb=t(v, hdim), h=t(v, d), w2=t(hdim),
+                b1=t(hdim), b2=t(1), g_mi=t(v, d), g_mo=t(v, d), em=em,
+                ems=tsp.sort_edge_weights(em, plans.recv), plans=plans, v=v,
+                s=torch.from_numpy(s).to(dev), r=torch.from_numpy(r).to(dev))
+
+
+def _iter_runs(c):
+    """((mi, mo), (dh, dpa, dpb, dw2, db1, db2)) of the kernels and of the
+    plain versions."""
+    args = [c[k] for k in ("pa", "pb", "h", "ems", "w2", "b1", "b2")]
+    ref_args = [c["pa"], c["pb"], c["h"], c["em"]] + args[4:]
+    ids = (c["s"], c["r"], c["v"])
+    mi, mo, sig = tsp.iteration_pair_fwd(*args, c["plans"])
+    return (((mi, mo),
+             tsp.iteration_pair_bwd(*args, c["g_mi"], c["g_mo"], c["plans"],
+                                    sig)),
+            (tsp.iteration_pair_reference(*ref_args, *ids),
+             tsp.iteration_pair_bwd_reference(*ref_args, c["g_mi"],
+                                              c["g_mo"], *ids)))
+
+
+def _check_iter(c, dtype):
+    n0 = tsp.launch_counts()
+    (fwd, bwd), (fwd_ref, bwd_ref) = _iter_runs(c)
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "iteration_pair": 1, "iteration_pair_bwd": 1}
+    for got, ref in zip(fwd + bwd[:3], fwd_ref + bwd_ref[:3]):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+    for got, ref in zip(bwd[3:], bwd_ref[3:]):
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got.float().reshape(ref.shape), ref, rtol=TOL[dtype]["rtol"],
+            atol=PARAM_SUM_ATOL[dtype] * ref.abs().max().item() + 1e-30)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hdim", [(1, 256), (8, 33), (33, 8), (66, 64),
+                                    (64, 66), (256, 1)])
+@pytest.mark.parametrize("hub", [0, 100])
+def test_iteration_kernels_match_plain_versions(dev, dtype, d, hdim, hub):
+    """Forward and backward against the plain versions at every width
+    class (vector and scalar paths, 1 to 32 lanes an edge), without and
+    with a hub of 100 edges (4 items on either side, the last partial)."""
+    c = _iter_case(40, 300, 2048, d, hdim, dev, dtype, hub)
+    assert (c["plans"].items.n_split > 0) == (hub > 0)
+    fwd, bwd = _check_iter(c, dtype)
+    # nodes without edges get zero rows, not uninitialised memory
+    for t in fwd + bwd[:3]:
+        assert (t[c["v"] * 3 // 4:-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["hub", "pad_only", "no_edges"])
+def test_iteration_kernels_on_odd_graphs(dev, dtype, case):
+    """A node that receives 1,500 edges from one node (47 items on either
+    side), a graph of only masked pad edges, and a graph without edges."""
+    kw = dict(hub=dict(hub=1500), pad_only=dict(pad_only=True),
+              no_edges={})[case]
+    c = _iter_case(41, 200, 0 if case == "no_edges" else 1024, 66, 64, dev,
+                   dtype, **kw)
+    fwd, bwd = _check_iter(c, dtype)
+    if case != "hub":
+        for t in fwd + bwd:
+            assert not t.any()
+
+
+def test_iteration_kernels_repeat_bit_for_bit(dev):
+    """Two launches of each kernel give the same bits, split nodes and
+    the f32 parameter sums included."""
+    c = _iter_case(42, 500, 4096, 66, 64, dev, torch.bfloat16, hub=300)
+    assert c["plans"].items.n_split > 0
+    (fa, ba), _ = _iter_runs(c)
+    (fb, bb), _ = _iter_runs(c)
+    for x, y in zip(fa + ba, fb + bb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("hub", [0, 100])
+def test_iteration_pair_autograd_matches_plain_autograd(dev, hub):
+    """Gradients through torch.autograd of the kernel Function against
+    autograd of the plain forward, in f32."""
+    c = _iter_case(43, 300, 2048, 66, 64, dev, torch.float32, hub)
+    names = ("pa", "pb", "h", "w2", "b1", "b2")
+    outs = []
+    for kernel in (True, False):
+        a = {k: c[k].clone().requires_grad_() for k in names}
+        if kernel:
+            mi, mo = tsp.iteration_pair(a["pa"], a["pb"], a["h"], c["ems"],
+                                        a["w2"], a["b1"], a["b2"],
+                                        c["plans"])
+        else:
+            mi, mo = tsp.iteration_pair_reference(
+                a["pa"], a["pb"], a["h"], c["em"], a["w2"], a["b1"],
+                a["b2"], c["s"], c["r"], c["v"])
+        outs.append(torch.autograd.grad((mi, mo), [a[k] for k in names],
+                                        (c["g_mi"], c["g_mo"])))
+    for name, got, want in zip(names, *outs):
+        torch.testing.assert_close(
+            got, want, rtol=1e-4,
+            atol=1e-5 if name in ("pa", "pb", "h")
+            else PARAM_SUM_ATOL[torch.float32] * want.abs().max().item(),
+            msg=name)
 
 
 # ---------------------------------------------------------------------------

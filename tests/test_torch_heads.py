@@ -116,13 +116,14 @@ def _models(head, seed=0, **kw):
     params = h["jinit"](jax.random.PRNGKey(seed), cfg_j)
     model = h["tinit"](h["tcfg"](input_dim=F, hidden_dim=HID, n_iters=ITERS,
                                  **kw),
-                       torch.Generator().manual_seed(seed))
+                       torch.Generator().manual_seed(seed), device="cpu")
     tser.load_jax_params(model, jax.tree.map(np.asarray, params))
     return cfg_j, params, model
 
 
 def _variant(model, **kw):
-    m = type(model)(dataclasses.replace(model.cfg, **kw), torch.Generator())
+    m = type(model)(dataclasses.replace(model.cfg, **kw), torch.Generator(),
+                    device="cpu")
     m.load_state_dict(model.state_dict())
     return m
 
@@ -215,7 +216,8 @@ def test_node_classifier_masks_and_remat_match_jax(route, masked, remat):
                                    **ROUTES[route])
     masks_j = jpruning.magnitude_masks(params, 0.15) if masked else None
     want = _jax_logits("node", params, jgraph, cfg_j, masks_j)
-    masks = (tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID)
+    masks = (tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID,
+                                 device="cpu")
              if masked else None)
     model.train()
     got = model(tgraph, masks)
@@ -331,7 +333,7 @@ def test_node_classifier_pruning_matches_jax():
     _, params, model = _models("node", seed=8, aggregation="sparse")
     want = tser.load_jax_masks(
         jax.tree.map(np.asarray, jpruning.magnitude_masks(params, 0.12)),
-        F, HID)
+        F, HID, device="cpu")
     got = tpruning.magnitude_masks(model, 0.12)
     assert {k: set(v) for k, v in got.items()} == \
         {"edge": {"pa", "pb", "l2"}, "node": {"l1", "l2"}}
@@ -380,7 +382,8 @@ def test_masked_bf16_gap_to_jax():
     cfg_j, params, model = _models("node", seed=9, aggregation="sparse",
                                    compute_dtype=torch.bfloat16)
     masks_j = jpruning.magnitude_masks(params, 0.15)
-    masks = tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID)
+    masks = tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID,
+                                device="cpu")
     pruned = tpruning.apply_masks_to_params(_variant(model), masks)
     with torch.no_grad():
         got, got_pruned = model(tgraph, masks), pruned(tgraph)
@@ -401,7 +404,8 @@ def test_weights_round_trip_through_jax_npz(head, tmp_path):
     """A tree written by either package loads in the other."""
     _, params, model = _models(head, seed=12)
     jser.save_params_npz(tmp_path / "jax.npz", params)
-    fresh = HEADS[head]["tinit"](model.cfg, torch.Generator().manual_seed(0))
+    fresh = HEADS[head]["tinit"](model.cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
     tser.load_jax_params(fresh, tser.load_params_npz(tmp_path / "jax.npz"))
     for (n, a), b in zip(fresh.named_parameters(), model.parameters()):
         assert torch.equal(a, b), n
@@ -423,7 +427,7 @@ def test_unshared_weights_need_the_same_depth():
     deeper = tm.init_segment_classifier_unshared(
         tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID,
                                    n_iters=ITERS + 1),
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="iterations"):
         tser.load_jax_params(deeper, jax.tree.map(np.asarray, params))
 
@@ -432,8 +436,8 @@ def test_unshared_weights_need_the_same_depth():
 def test_init_bounds_and_seeding(head):
     h = HEADS[head]
     cfg = h["tcfg"](input_dim=2, hidden_dim=16, n_iters=3)
-    a = h["tinit"](cfg, torch.Generator().manual_seed(5))
-    b = h["tinit"](cfg, torch.Generator().manual_seed(5))
+    a = h["tinit"](cfg, torch.Generator().manual_seed(5), device="cpu")
+    b = h["tinit"](cfg, torch.Generator().manual_seed(5), device="cpu")
     d = 2 + 16
     edge = "edge" if head == "node" else "edge_stack.2"
     fan_in = {"input.weight": 2, f"{edge}.pa.weight": 2 * d,

@@ -65,14 +65,15 @@ def _models(seed=0, **cfg_kw):
     cfg_t = tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID,
                                        n_iters=ITERS, aggregation="pallas",
                                        **cfg_kw)
-    model = tm.init_segment_classifier(cfg_t, torch.Generator().manual_seed(9))
+    model = tm.init_segment_classifier(cfg_t, torch.Generator().manual_seed(9),
+                                       device="cpu")
     tser.load_jax_params(model, np_params)
     return cfg_j, params, model
 
 
 def _variant(model, **kw):
     m = tm.SegmentClassifier(dataclasses.replace(model.cfg, **kw),
-                             torch.Generator())
+                             torch.Generator(), device="cpu")
     m.load_state_dict(model.state_dict())
     return m
 
@@ -101,7 +102,8 @@ def test_forward_with_mask_tree_matches_jax(route):
     cfg_j, params, model = _models(seed=1)
     masks = pruning.magnitude_masks(params, 0.15)
     want = _jax_logits(params, jgraph, cfg_j, masks)
-    tmasks = tser.load_jax_masks(jax.tree.map(np.asarray, masks), F, HID)
+    tmasks = tser.load_jax_masks(jax.tree.map(np.asarray, masks), F, HID,
+                                 device="cpu")
     assert tmasks["edge"]["pa"].shape == (HID, F + HID)
     with torch.no_grad():
         got = tm.segment_classifier_logits(
@@ -143,7 +145,7 @@ def test_load_params_npz_from_jax_writer(tmp_path):
     model = tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID,
                                    n_iters=ITERS),
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     tser.load_jax_params(model, loaded)
     with torch.no_grad():
         got = model(tgraph)
@@ -169,15 +171,15 @@ def test_load_jax_params_rejects_wrong_width():
     _, params, _ = _models()
     model = tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID + 1),
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError):
         tser.load_jax_params(model, jax.tree.map(np.asarray, params))
 
 
 def test_init_bounds_and_seeding():
     cfg = tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16)
-    a = tm.init_segment_classifier(cfg, torch.Generator().manual_seed(5))
-    b = tm.init_segment_classifier(cfg, torch.Generator().manual_seed(5))
+    a, b = (tm.init_segment_classifier(cfg, torch.Generator().manual_seed(5),
+                                       device="cpu") for _ in range(2))
     d = 2 + 16
     fan_in = {"input.weight": 2, "edge.pa.weight": 2 * d, "edge.b1": 2 * d,
               "edge.l2.bias": 16, "node.l1.weight": 3 * d,
@@ -225,3 +227,26 @@ def test_routes_not_ported_raise():
             _variant(model, aggregation="blocked")(tgraph)
         with pytest.raises(ValueError, match="plans"):
             _variant(model, aggregation="pallas")(plain)
+
+
+@pytest.mark.parametrize("init", [tm.init_segment_classifier,
+                                  tm.init_segment_classifier_unshared,
+                                  tm.init_node_classifier])
+def test_default_device_is_the_card(init, monkeypatch):
+    """``device=None`` means the CUDA device: with a card the parameters
+    land there, and without one the constructors and the mask loader
+    raise instead of quietly running on the CPU."""
+    cfg = (tm.NodeClassifierConfig if init is tm.init_node_classifier
+           else tm.SegmentClassifierConfig)(input_dim=2, hidden_dim=8)
+    masks = {"node": {"l1": np.ones((3 * 10, 8), np.float32)}}
+    if torch.cuda.is_available():
+        model = init(cfg, torch.Generator().manual_seed(0))
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
+        assert tser.load_jax_masks(masks, 2, 8)["node"]["l1"].is_cuda
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tser.load_jax_masks(masks, 2, 8)
+    model = init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

@@ -261,9 +261,10 @@ def test_model_gradients_match_jax(fused, masked, remat):
         tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID,
                                    n_iters=ITERS, aggregation="pallas",
                                    fused_iteration=fused, remat=remat),
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     tser.load_jax_params(model, jax.tree.map(np.asarray, params))
-    masks = (tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID)
+    masks = (tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID,
+                                 device="cpu")
              if masked else None)
     n0 = dict(tsp.launch_counts())
     loss = ttrainer.masked_bce_with_logits(model(tgraph, masks), tgraph.y,
@@ -295,7 +296,8 @@ def test_final_edge_layer_goes_through_gather_pair(monkeypatch):
                                          n_iters=ITERS, aggregation="pallas",
                                          fused_iteration=fused)
         model = tm.init_segment_classifier(cfg,
-                                           torch.Generator().manual_seed(1))
+                                           torch.Generator().manual_seed(1),
+                                           device="cpu")
         model(tgraph).sum().backward()
         assert len(calls) == expect, fused
 
@@ -308,7 +310,8 @@ def test_remat_gives_the_same_gradients():
     for remat in (False, True):
         model = tm.init_segment_classifier(dataclasses.replace(cfg,
                                                                remat=remat),
-                                           torch.Generator().manual_seed(2))
+                                           torch.Generator().manual_seed(2),
+                                           device="cpu")
         model(tgraph).square().sum().backward()
         grads.append([p.grad.clone() for p in model.parameters()])
     for a, b in zip(*grads):

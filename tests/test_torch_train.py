@@ -39,7 +39,7 @@ def _model_pair(seed, **cfg_kw):
     model = tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=F, hidden_dim=HID,
                                    n_iters=ITERS, **cfg_kw),
-        torch.Generator().manual_seed(seed))
+        torch.Generator().manual_seed(seed), device="cpu")
     tser.load_jax_params(model, jax.tree.map(np.asarray, params))
     return cfg_j, params, model
 
@@ -106,7 +106,7 @@ def test_batched_graph_loss_matches_jax_vmap():
     model = tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=2, hidden_dim=HID, n_iters=ITERS,
                                    aggregation="sparse"),
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     cfg_j = jm.SegmentClassifierConfig(input_dim=2, hidden_dim=HID,
                                        n_iters=ITERS, aggregation="sparse")
     params = jax.tree.map(jnp.asarray, tser.to_jax_params(model))
@@ -143,7 +143,8 @@ def test_masked_bce_matches_jax():
 def test_l1_penalty_with_masks_matches_jax():
     _, params, model = _model_pair(13)
     masks_j = jpruning.magnitude_masks(params, 0.1)
-    masks_t = tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID)
+    masks_t = tser.load_jax_masks(jax.tree.map(np.asarray, masks_j), F, HID,
+                                  device="cpu")
     for mj, mt in ((None, None), (masks_j, masks_t)):
         np.testing.assert_allclose(
             ttrainer.l1_penalty(model, masks=mt).item(),
@@ -195,7 +196,7 @@ def test_magnitude_masks_match_jax():
     _, params, model = _model_pair(14)
     want = tser.load_jax_masks(
         jax.tree.map(np.asarray, jpruning.magnitude_masks(params, 0.12)),
-        F, HID)
+        F, HID, device="cpu")
     got = tpruning.magnitude_masks(model, 0.12)
     assert {k: set(v) for k, v in got.items()} == \
         {"edge": {"pa", "pb", "l2"}, "node": {"l1", "l2"}}
@@ -254,7 +255,7 @@ def _toy_model(seed, n_iters=2):
     return tm.init_segment_classifier(
         tm.SegmentClassifierConfig(input_dim=2, hidden_dim=8, n_iters=n_iters,
                                    aggregation="sparse"),
-        torch.Generator().manual_seed(seed))
+        torch.Generator().manual_seed(seed), device="cpu")
 
 
 def test_checkpoint_resume(tmp_path):
