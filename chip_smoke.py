@@ -20,9 +20,10 @@ it:
    events), its bound (the larger of its bytes over the card's memory rate
    and its operations over the f32 rate) and, where one PyTorch call
    computes the same function, that call's time; then the fused
-   iteration's two kernels on the fullevent and the hit graph, each with
-   and without its pad edges: checked, two launches equal bit for bit,
-   and timed;
+   iteration's two kernels on the fullevent and the hit graph, and the
+   lane-group row kernels (gather_pair_bwd, sddmm) on the fullevent graph,
+   each with and without its pad edges: checked, two launches equal bit
+   for bit, and timed (gather_pair_bwd's two directions also alone);
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
@@ -574,6 +575,68 @@ def phase_iteration(g_full) -> None:
                         atol = (PARAM_SUM_ATOL[torch.bfloat16]
                                 * b.abs().max().item())
                     compare(f"{name} {what} {side}", a, b, rtol, atol)
+                k1, k2 = time_ms(kern), time_ms(kern)
+                print(f"  {name} {what}: kernel {device_ms(k1, k2):.4f} ms "
+                      f"({fmt_ms(k1)}, {fmt_ms(k2)}); two launches bit for "
+                      f"bit", flush=True)
+
+
+def phase_rows(g_full) -> None:
+    """The lane-group row kernels, gather_pair_bwd and sddmm, in f32 and
+    bf16 on the fullevent graph with and without its pad edges (the pad
+    node's 160-edge segments, walked by blocks of their own): against
+    their plain versions, two launches bit for bit, and timed; and
+    gather_pair_bwd's two halves, each timed alone by emptying the other
+    direction's plan (whose rows are then written as zeros)."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    dev = g_full.x.device
+    gen = torch.Generator().manual_seed(77)
+    d, hdim = HIDDEN + INPUT_DIM, HIDDEN
+    print("row kernels, with and without the pad edges:", flush=True)
+
+    def emptied(plans, side):
+        plan = getattr(plans, side)
+        return dataclasses.replace(plans, **{side: dataclasses.replace(
+            plan, seg_ptr=torch.zeros_like(plan.seg_ptr),
+            long_seg=plan.long_seg[:0])})
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dt)
+        a, b = rnd(N_NODE, d), rnd(N_NODE, d)
+        for pad, g in (("pad", g_full), ("no pad", without_pad_edges(g_full))):
+            grad, plans = rnd(g.n_edge, hdim), g.plans
+            s, r = g.senders, g.receivers
+            gp_ref = lambda: spmm.gather_pair_bwd_reference(grad, s, r, N_NODE)
+            runs = {
+                "gather_pair_bwd": (lambda: spmm.gather_pair_bwd(grad, plans),
+                                    gp_ref, KERNEL_TOL[dt]),
+                "sddmm": (lambda: (spmm.sddmm(a, b, plans.recv),),
+                          lambda: (spmm.sddmm_reference(a, b, r, s),),
+                          KERNEL_TOL[torch.float32]),
+            }
+            if pad == "pad":
+                recv_only, send_only = (emptied(plans, "send"),
+                                        emptied(plans, "recv"))
+                runs["gather_pair_bwd, recv half alone"] = (
+                    lambda: spmm.gather_pair_bwd(grad, recv_only),
+                    lambda: (torch.zeros_like(gp_ref()[0]), gp_ref()[1]),
+                    KERNEL_TOL[dt])
+                runs["gather_pair_bwd, send half alone"] = (
+                    lambda: spmm.gather_pair_bwd(grad, send_only),
+                    lambda: (gp_ref()[0], torch.zeros_like(gp_ref()[1])),
+                    KERNEL_TOL[dt])
+            what = (f"{tag} ({pad}, E={g.n_edge}, long segments "
+                    f"{len(plans.recv.long_seg)} recv, "
+                    f"{len(plans.send.long_seg)} send)")
+            for name, (kern, plain, tol) in runs.items():
+                first, again, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    fail(f"{name} {what}: two launches differ")
+                for x, y in zip(first, ref):
+                    compare(f"{name} {what}", x, y, *tol)
                 k1, k2 = time_ms(kern), time_ms(kern)
                 print(f"  {name} {what}: kernel {device_ms(k1, k2):.4f} ms "
                       f"({fmt_ms(k1)}, {fmt_ms(k2)}); two launches bit for "
@@ -1208,6 +1271,7 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = phase_kernels(graphs[0])
     phase_iteration(graphs[0])
+    phase_rows(graphs[0])
     paths = (phase_serving(device, graphs, args.profile),
              phase_training(device, graphs, args.profile),
              phase_ops(graphs[0]), phase_blocked(device, args.profile),

@@ -31,22 +31,6 @@ namespace gnn {
 
 constexpr int kEdgeUnroll = 4;
 
-// Sum over an aligned group of `lanes` lanes (a power of two, at most 32):
-// every lane of the warp calls it, every lane of a group gets its sum.
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  for (int off = lanes >> 1; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T, int N>
-__device__ __forceinline__ Vec<T, N> pack(const float (&src)[N]) {
-  Vec<T, N> r;
-#pragma unroll
-  for (int q = 0; q < N; ++q) r.v[q] = from_f32<T>(src[q]);
-  return r;
-}
-
 // Items first + i * stride (i < kI) of an f32 accumulator row: to `row`
 // in T when `slot` < 0, else to row `slot` of the f32 partials.
 template <int kI, typename T, int N>
@@ -71,10 +55,6 @@ __device__ __forceinline__ void store_items(const float (&src)[kI][N],
 }
 
 // Host side.
-
-inline bool aligned_to(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
 
 // The shapes of one fused iteration call and which rows take the vector
 // path: H rows (pa, pb, w2, b1 and their gradients) as items of h_bytes

@@ -74,42 +74,18 @@ namespace {
 using gnn::from_f32;
 using gnn::group_sum;
 using gnn::IterShape;
+using gnn::Lanes;
+using gnn::load_row_items;
+using gnn::kFull;
 using gnn::kThreads;
 using gnn::kWarp;
 using gnn::kWarpsPerBlock;
 using gnn::pack;
 using gnn::store_items;
+using gnn::sum_groups;
 using gnn::to_f32;
 using gnn::Vec;
 using gnn::warp_sum;
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// What the two passes share: a warp's place, and how its lanes split into
-// groups of 2^log_lanes, one edge a group.
-struct Lanes {
-  int lane, c0, group, groups, lanes;
-
-  __device__ explicit Lanes(int log_lanes)
-      : lane(threadIdx.x & (kWarp - 1)),
-        c0(lane & ((1 << log_lanes) - 1)),
-        group(lane >> log_lanes),
-        groups(kWarp >> log_lanes),
-        lanes(1 << log_lanes) {}
-};
-
-// Items c0, c0 + lanes, ... of row `r` of a table of rows of `row` items,
-// as stored.
-template <int kI, typename V>
-__device__ __forceinline__ void own_row(V (&dst)[kI],
-                                        const V* __restrict__ tab, long r,
-                                        int row, const Lanes& ln) {
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    const int c = ln.c0 + i * ln.lanes;
-    if (c < row) dst[i] = tab[r * row + c];
-  }
-}
 
 // Staging of gathered rows in shared memory with cp.async, whose copies
 // hold no registers while they are in flight.  A row of 4-, 8- or 16-byte
@@ -178,18 +154,6 @@ __device__ __forceinline__ const V* staged(const char* slot,
   return reinterpret_cast<const V*>(slot + (a & 3));
 }
 
-// The sum of the groups' rows, on every lane, in a fixed order (xor
-// partners: group g adds g ^ 1, then g ^ 2, ...).
-template <int kI, int N>
-__device__ __forceinline__ void sum_groups(float (&acc)[kI][N], int lanes) {
-  for (int off = lanes; off < kWarp; off <<= 1)
-#pragma unroll
-    for (int k = 0; k < kI; ++k)
-#pragma unroll
-      for (int q = 0; q < N; ++q)
-        acc[k][q] += __shfl_xor_sync(kFull, acc[k][q], off);
-}
-
 template <int kI, int N>
 __device__ __forceinline__ void zero(float (&acc)[kI][N]) {
 #pragma unroll
@@ -234,11 +198,11 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
   // take half the registers of f32 ones) and widened where used
   Vec<T, NH> w2r[kI], b1r[kI], own[kI];
   Vec<T, ND> gin[kC], hn[kC];
-  own_row(w2r, w2, 0, row_h, ln);
-  own_row(b1r, b1, 0, row_h, ln);
-  own_row(own, pb, n, row_h, ln);
-  own_row(gin, g_mi, n, row_d, ln);
-  own_row(hn, h, n, row_d, ln);
+  load_row_items(w2r, w2, 0, row_h, ln);
+  load_row_items(b1r, b1, 0, row_h, ln);
+  load_row_items(own, pb, n, row_h, ln);
+  load_row_items(gin, g_mi, n, row_d, ln);
+  load_row_items(hn, h, n, row_d, ln);
   float hacc[kI][NH], dacc[kC][ND];
   zero(hacc);
   zero(dacc);
@@ -357,8 +321,8 @@ send_kernel(int n_send, int n_recv, int row_h, int row_d, int log_lanes,
   const int slot = slot_h + slot_d;
   char* buf = smem + static_cast<long>(wib) * chunk * slot;
   Vec<T, NH> w2r[kI], b1r[kI];
-  own_row(w2r, w2, 0, row_h, ln);
-  own_row(b1r, b1, 0, row_h, ln);
+  load_row_items(w2r, w2, 0, row_h, ln);
+  load_row_items(b1r, b1, 0, row_h, ln);
   float dw2[kI][NH], db1[kI][NH], db2 = 0.f;
   zero(dw2);
   zero(db1);
@@ -366,7 +330,7 @@ send_kernel(int n_send, int n_recv, int row_h, int row_d, int log_lanes,
     const int4 it = items[n_recv + i];   // beg, end, node, slot
     const long n = it.z;
     Vec<T, NH> own[kI];
-    own_row(own, pa, n, row_h, ln);
+    load_row_items(own, pa, n, row_h, ln);
     float hacc[kI][NH], dacc[kC][ND];
     zero(hacc);
     zero(dacc);

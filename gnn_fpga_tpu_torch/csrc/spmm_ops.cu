@@ -11,7 +11,8 @@
 // sorted by their seg endpoint (ops/cuda/spmm.py::EdgePlan, or the
 // SortedSegments of ops/cuda/segment_sum.py), and one warp owns one seg
 // node: it walks the node's contiguous segment and keeps the node's own
-// rows and sums in f32 registers (lane l holds columns l, l+32, ...).
+// rows and sums in f32 registers (lane l holds columns l, l+32, ...; in
+// sddmm, a group of lanes takes an edge, rows.cuh).
 // Every output row or element has one owner and is written once: no
 // atomics and no zero-fill, and results are identical from run to run.
 // The TPU kernels' windowed one-hot matmuls are not carried over: they
@@ -25,45 +26,132 @@
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError().
 
-#include "common.cuh"
+#include "rows.cuh"
 
 namespace {
 
 using gnn::dispatch;
+using gnn::dispatch_rows;
+using gnn::group_sum;
+using gnn::kFull;
+using gnn::kLongSegment;
 using gnn::kThreads;
 using gnn::kWarp;
 using gnn::kWarpsPerBlock;
+using gnn::load_row_items;
 using gnn::load_row;
+using gnn::RowItems;
+using gnn::Lanes;
 using gnn::Side;
 using gnn::store_row;
 using gnn::to_f32;
+using gnn::Vec;
+using gnn::Walk;
 using gnn::warp_sum;
 
-// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_sddmm_kernel (!kDual) and
-// ::_sddmm_dual_kernel (kDual).  One warp per seg node n holds a[n] (and
-// v[n]) in registers, walks n's segment, gathers b[o] (and u[o]) for each
-// edge, reduces the dot products across the warp and writes the edge's
-// value straight to its EDGE-order slot out[order[j]], which replaces the
-// JAX kernel's sorted-order output and its take(..., inv_order).
+// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_sddmm_kernel (reached from
+// sddmm).  One warp per seg node n holds a[n] in registers and walks n's
+// segment (a long segment goes to a block of its own, rows.cuh); its
+// lanes split into groups of 2^log_lanes, one edge a group.  Each group
+// loads its edges' rows b[o], edges_in_flight at a time; per edge each
+// lane sums the products of its items, the group adds its lanes' sums
+// (log_lanes shuffles, 3 at 8 lanes) and one lane writes the edge's value
+// straight to its EDGE-order slot out[order[j]], which replaces the JAX
+// kernel's sorted-order output and its take(..., inv_order).  The
+// fullevent D = 66 rows (132 bytes in bf16, 264 in f32) are 33 items of 4
+// or 8 bytes, 5 a lane in groups of 8 lanes (ops/cuda/spmm.py::
+// row_launch).
 //
-// What bounds it on this card: the row gathers, one (two) rows of D
-// elements per edge, and one warp reduction per edge.  At the fullevent
-// shapes (V = 15,848, E = 180,736, D = 66) the tables are 2-4 MB in bf16
-// and stay in the 50 MB L2, so the limit is gather latency, hidden only by
-// occupancy (V warps); the 4-byte stores to out are scattered by the
-// plan's order.
-template <typename T, int kC, bool kDual>
+// What bounds it on this card: not bytes.  At the fullevent shapes
+// (V = 15,848, E = 180,736, D = 66) the tables are 2-4 MB and stay in the
+// 50 MB L2, so the kernel moves 24 MB (bf16) or 48 MB (f32) of rows from
+// L2 against a bound that counts b once (1.9 / 3.1 us), and f32 runs the
+// faster; each warp's walk is a chain of dependent loads whose latency
+// the resident warps hide.  Measured on an H100 (PERF.md): 0.013 ms in
+// bf16 and 0.011 ms in f32, the same with and without the pad edges; the
+// first design (a warp a node, 2- or 4-byte loads, a five-step warp
+// reduction an edge) took 0.042 and 0.041 ms, much of it the pad node's
+// 160-edge walk in the grid's last wave.
+template <typename T, int N, int kI>
 __global__ void __launch_bounds__(kThreads)
-sddmm_kernel(int n_node, int d, const T* __restrict__ a,
-             const T* __restrict__ b, const T* __restrict__ u,
-             const T* __restrict__ v, Side side, float* __restrict__ out) {
+sddmm_kernel(int n_node, int row, int log_lanes,
+             const Vec<T, N>* __restrict__ a,
+             const Vec<T, N>* __restrict__ b, Side side,
+             const int32_t* __restrict__ long_seg, int n_long,
+             float* __restrict__ out) {
+  constexpr int kU = gnn::edges_in_flight<kI, sizeof(Vec<T, N>)>();
+  const Lanes ln(log_lanes);
+  // blocks [0, n_long) walk the plan's long segments; the warps of the
+  // blocks after them own one seg node each
+  const bool whole = static_cast<int>(blockIdx.x) >= n_long;
+  const long n = whole ? static_cast<long>(blockIdx.x - n_long) *
+                                 kWarpsPerBlock + (threadIdx.x / kWarp)
+                       : long_seg[blockIdx.x];
+  if (n >= n_node) return;
+  const int beg = side.seg_ptr[n], end = side.seg_ptr[n + 1];
+  if (whole && end - beg > kLongSegment) return;   // its block takes it
+  Vec<T, N> own[kI];   // as stored: bf16 pairs take half the registers
+  load_row_items(own, a, n, row, ln);
+  const Walk walk = Walk::of(beg, whole);
+  for (int base = walk.first; base < end; base += walk.stride) {
+    const int cnt = min(kWarp, end - base);
+    const bool mine = ln.lane < cnt;
+    const int o_l = mine ? side.oth[base + ln.lane] : 0;
+    const int dst_l = mine ? side.w_idx[base + ln.lane] : 0;
+    for (int k0 = 0; k0 < cnt; k0 += ln.groups * kU) {
+      Vec<T, N> rows[kU][kI];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int k = k0 + u * ln.groups + ln.group;
+        // the same on every lane: whether the warp has edges left
+        if (k0 + u * ln.groups < cnt) {
+          const long o = __shfl_sync(kFull, o_l, k & (kWarp - 1));
+          if (k < cnt) load_row_items(rows[u], b, o, row, ln);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int k = k0 + u * ln.groups + ln.group;
+        if (k0 + u * ln.groups >= cnt) continue;  // on every lane alike
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < kI; ++i) {
+          if (k >= cnt || ln.c0 + i * ln.lanes >= row) continue;
+#pragma unroll
+          for (int q = 0; q < N; ++q)
+            part = fmaf(to_f32(own[i].v[q]), to_f32(rows[u][i].v[q]), part);
+        }
+        part = group_sum(part, ln.lanes);
+        const int dst = __shfl_sync(kFull, dst_l, k & (kWarp - 1));
+        if (k < cnt && ln.c0 == 0) out[dst] = part;
+      }
+    }
+  }
+}
+
+// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_sddmm_dual_kernel (reached
+// from sddmm_dual).  One warp per seg node n holds p[n] and v[n] in
+// registers, walks n's segment, gathers q[o] and u[o] for each edge,
+// reduces the two dot products across the warp and writes the edge's
+// value straight to its EDGE-order slot out[order[j]].
+//
+// What bounds it on this card: the row gathers, two rows of D elements
+// per edge, and one warp reduction per edge.  At the fullevent shapes the
+// tables stay in L2, so the limit is gather latency, hidden only by
+// occupancy (V warps).
+template <typename T, int kC>
+__global__ void __launch_bounds__(kThreads)
+sddmm_dual_kernel(int n_node, int d, const T* __restrict__ a,
+                  const T* __restrict__ b, const T* __restrict__ u,
+                  const T* __restrict__ v, Side side,
+                  float* __restrict__ out) {
   const int lane = threadIdx.x & (kWarp - 1);
   const long n = static_cast<long>(blockIdx.x) * kWarpsPerBlock +
                  (threadIdx.x / kWarp);
   if (n >= n_node) return;
   float an[kC], vn[kC];
   load_row<kC>(an, a + n * d, d, lane);
-  if (kDual) load_row<kC>(vn, v + n * d, d, lane);
+  load_row<kC>(vn, v + n * d, d, lane);
   for (int j = side.seg_ptr[n]; j < side.seg_ptr[n + 1]; ++j) {
     const long o = side.oth[j];
     float part = 0.f;
@@ -72,7 +160,7 @@ sddmm_kernel(int n_node, int d, const T* __restrict__ a,
       const int k = c * kWarp + lane;
       if (k < d) {
         part += an[c] * to_f32(b[o * d + k]);
-        if (kDual) part += to_f32(u[o * d + k]) * vn[c];
+        part += to_f32(u[o * d + k]) * vn[c];
       }
     }
     part = warp_sum(part);
@@ -133,32 +221,51 @@ int gnn_spmm(int dtype, int n_node, int d, const void* h, const float* w,
                                  Side{seg_ptr, oth, order}, out, stream);
 }
 
-// sddmm (u and v null) or sddmm_dual; dtype as above for a, b, u, v.
-// out: [E] f32 in EDGE order.
-int gnn_sddmm(int dtype, int n_node, int d, const void* a, const void* b,
-              const void* u, const void* v, const int32_t* seg_ptr,
-              const int32_t* oth, const int32_t* order, float* out,
+// a, b: [n_node, d] in dtype (as above); item_bytes, log_lanes:
+// ops/cuda/spmm.py::row_launch (rows.cuh); long_seg [n_long]: the plan's
+// nodes with more than kLongSegment edges (EdgePlan.long_seg).  out: [E]
+// f32 in EDGE order.
+int gnn_sddmm(int dtype, int n_node, int d, int item_bytes, int log_lanes,
+              const void* a, const void* b, const int32_t* seg_ptr,
+              const int32_t* oth, const int32_t* order,
+              const int32_t* long_seg, int n_long, float* out,
               void* stream) {
-  const bool dual = u != nullptr;
-  if (dual != (v != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_node < 0 || n_long < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowItems ri{d, dtype == 0 ? 4 : 2, item_bytes, log_lanes};
+  const void* tables[] = {a, b};
+  const int err = ri.check(tables, 2);
+  if (err != 0) return err;
+  const unsigned blocks = n_long + gnn::blocks_for_warps(n_node);
+  return dispatch_rows(dtype, ri, [&](auto var) {
+    using R = decltype(var);
+    using Item = typename R::Item;
+    if (blocks > 0)
+      sddmm_kernel<typename R::type, R::n, R::items>
+          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              n_node, ri.row(), log_lanes, static_cast<const Item*>(a),
+              static_cast<const Item*>(b), Side{seg_ptr, oth, order},
+              long_seg, n_long, out);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// p, q, u, v: [n_node, d] in dtype (as above).  out: [E] f32 in EDGE
+// order.
+int gnn_sddmm_dual(int dtype, int n_node, int d, const void* p,
+                   const void* q, const void* u, const void* v,
+                   const int32_t* seg_ptr, const int32_t* oth,
+                   const int32_t* order, float* out, void* stream) {
   const unsigned blocks = gnn::blocks_for_warps(n_node);
   const Side side{seg_ptr, oth, order};
   return dispatch(dtype, d, [&](auto var) {
     using T = typename decltype(var)::type;
     constexpr int kC = decltype(var)::chunks;
-    const auto st = static_cast<cudaStream_t>(stream);
-    const T* ta = static_cast<const T*>(a);
-    const T* tb = static_cast<const T*>(b);
-    const T* tu = static_cast<const T*>(u);
-    const T* tv = static_cast<const T*>(v);
-    if (blocks > 0) {
-      if (dual)
-        sddmm_kernel<T, kC, true><<<blocks, kThreads, 0, st>>>(
-            n_node, d, ta, tb, tu, tv, side, out);
-      else
-        sddmm_kernel<T, kC, false><<<blocks, kThreads, 0, st>>>(
-            n_node, d, ta, tb, tu, tv, side, out);
-    }
+    if (blocks > 0)
+      sddmm_dual_kernel<T, kC>
+          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              n_node, d, static_cast<const T*>(p), static_cast<const T*>(q),
+              static_cast<const T*>(u), static_cast<const T*>(v), side, out);
     return static_cast<int>(cudaGetLastError());
   });
 }

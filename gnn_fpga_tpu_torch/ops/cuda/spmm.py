@@ -34,7 +34,9 @@ The plans keep the JAX package's receiver-sorted and sender-sorted edge
 orders, from a stable argsort, and add CSR row pointers, so each node's
 row is reduced by one warp without atomics; the fused iteration's kernels
 walk work items of at most :data:`ITEM_EDGES` edges instead
-(:class:`IterItems`), so that no long segment sets a tail.  The TPU's
+(:class:`IterItems`), and :func:`sddmm` and :func:`gather_pair_bwd` give
+each segment of more than :data:`LONG_SEGMENT` edges a block of warps
+(``EdgePlan.long_seg``), so that no long segment sets a tail.  The TPU's
 gather windows, prebuilt one-hots and tile padding are not needed: Hopper
 gathers rows natively.
 
@@ -70,6 +72,9 @@ class EdgePlan:
       sorted_oth: [E]   oth ids in sorted order
       seg_ptr:    [V+1] CSR offsets: node n's edges are
                         ``sorted_*[seg_ptr[n]:seg_ptr[n+1]]``
+      long_seg:   [S]   the nodes with more than :data:`LONG_SEGMENT`
+                        edges, ascending; :func:`sddmm` and
+                        :func:`gather_pair_bwd` walk each with a block
     """
 
     order: torch.Tensor
@@ -77,6 +82,7 @@ class EdgePlan:
     sorted_seg: torch.Tensor
     sorted_oth: torch.Tensor
     seg_ptr: torch.Tensor
+    long_seg: torch.Tensor
     n_node: int
     n_edge: int
 
@@ -84,7 +90,7 @@ class EdgePlan:
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device)
                      for f in ("order", "inv_order", "sorted_seg",
-                               "sorted_oth", "seg_ptr")})
+                               "sorted_oth", "seg_ptr", "long_seg")})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +159,14 @@ class AggPlans:
                         self.send_in_recv.to(device), self.items.to(device))
 
 
+# Segments longer than this are walked by the eight warps of a block in
+# sddmm and gather_pair_bwd (csrc/rows.cuh kLongSegment), other segments
+# by one warp: the packed fullevent graph's pad node has 160 edges in each
+# direction, and one warp walking them set both kernels' tails
+# (PERF.md).
+LONG_SEGMENT = 32
+
+
 def build_edge_plan(seg_ids, oth_ids, n_node: int) -> EdgePlan:
     """Host-side (numpy) plan for one aggregation direction."""
     seg_ids = np.asarray(seg_ids, np.int64)
@@ -165,12 +179,14 @@ def build_edge_plan(seg_ids, oth_ids, n_node: int) -> EdgePlan:
         raise ValueError("edge ids must be in [0, n_node)")
     order = np.argsort(seg_ids, kind="stable")
     inv_order = np.argsort(order, kind="stable")
+    deg = np.bincount(seg_ids, minlength=n_node)
     seg_ptr = np.zeros(n_node + 1, np.int64)
-    np.cumsum(np.bincount(seg_ids, minlength=n_node), out=seg_ptr[1:])
+    np.cumsum(deg, out=seg_ptr[1:])
     as_t = lambda a: torch.from_numpy(a.astype(np.int32))
     return EdgePlan(order=as_t(order), inv_order=as_t(inv_order),
                     sorted_seg=as_t(seg_ids[order]),
                     sorted_oth=as_t(oth_ids[order]), seg_ptr=as_t(seg_ptr),
+                    long_seg=as_t(np.flatnonzero(deg > LONG_SEGMENT)),
                     n_node=int(n_node), n_edge=e)
 
 
@@ -328,6 +344,51 @@ def iteration_launch(n_edge: int, d: int, hdim: int, dtype,
                       slot_h=slot_h, slot_d=slot_d)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowLaunch:
+    """How the kernels of ``csrc/rows.cuh`` (:func:`sddmm`,
+    :func:`gather_pair_bwd`) read one call's rows: as items of
+    ``item_bytes`` (16, 8, 4 or, in bf16, 2 bytes), in groups of ``2 **
+    log_lanes`` lanes, one edge a group, lane ``c`` holding items ``c, c +
+    lanes, ...`` (at most 8)."""
+
+    item_bytes: int
+    log_lanes: int
+
+
+@functools.lru_cache(maxsize=256)
+def row_launch(width: int, dtype, align: int = 16) -> RowLaunch:
+    """The :class:`RowLaunch` for rows of ``width`` elements of ``dtype``
+    in tables whose base addresses are multiples of ``align`` bytes
+    (:func:`_alignment`): the widest item, at most 16 bytes, that divides
+    the row and ``align``; the fewest lanes that hold a row in one item a
+    lane, or, for rows of more than 32 items, in at most 8.  H = 64 is one
+    16-byte item on each of 8 lanes in bf16, of 16 lanes in f32; the
+    fullevent D = 66 (132-byte rows in bf16, 264 in f32) is 33 items of 4
+    or 8 bytes, 5 a lane on 8 lanes, which ran faster than 3 on 16 or 2 on
+    32 (PERF.md)."""
+    elem = dtype.itemsize
+    item = 16
+    while item > elem and (width * elem % item or align % item):
+        item //= 2
+    n_items = width * elem // item
+    per_lane = 1 if n_items <= 32 else 8
+    return RowLaunch(
+        item_bytes=item,
+        log_lanes=(max(-(-n_items // per_lane), 1) - 1).bit_length())
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two, at most 16, that divides the base address
+    of every tensor (an empty tensor's null address divides by all)."""
+    align = 16
+    for t in tensors:
+        ptr = t.data_ptr()
+        if ptr:
+            align = min(align, ptr & -ptr)
+    return align
+
+
 def walk_blocks(n_item: int, sm_count: int) -> int:
     """Blocks of eight warps for the backward's send pass, whose warps
     stride over ``n_item`` items: two blocks an SM (the pass's register
@@ -340,10 +401,6 @@ def walk_blocks(n_item: int, sm_count: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _aligned(tables, bytes_: int) -> bool:
-    return all(t.data_ptr() % bytes_ == 0 for t in tables)
 
 
 def sort_edge_weights(w: torch.Tensor, plan: EdgePlan) -> torch.Tensor:
@@ -469,7 +526,8 @@ def _check_plan(name, plan: EdgePlan, device, n_node: int):
         raise ValueError(f"{name}: plan is for {plan.n_node} nodes, tables "
                          f"for {n_node}")
     _check_cuda(device, torch.int32, seg_ptr=plan.seg_ptr,
-                sorted_oth=plan.sorted_oth, order=plan.order)
+                sorted_oth=plan.sorted_oth, order=plan.order,
+                long_seg=plan.long_seg)
 
 
 def _check_plans(plans: AggPlans, device, n_node: int):
@@ -562,8 +620,8 @@ def iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2, plans: AggPlans):
     n_edge = plans.recv.n_edge
     it = plans.items
     la = iteration_launch(n_edge, d, hdim, h.dtype,
-                          _aligned((pa, pb, w2, b1), 16),
-                          _aligned((h,), 2 * h.element_size()))
+                          _alignment(pa, pb, w2, b1) >= 16,
+                          _alignment(h) >= 2 * h.element_size())
     f32 = dict(dtype=torch.float32, device=h.device)
     e_sorted, sig = torch.empty(n_edge, **f32), torch.empty(n_edge, **f32)
     partial = torch.empty((max(it.n_slot, 1), d), **f32)
@@ -636,8 +694,8 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
     n_edge = plans.recv.n_edge
     it = plans.items
     la = iteration_launch(n_edge, d, hdim, h.dtype,
-                          _aligned((pa, pb, w2, b1), 16),
-                          _aligned((h, g_mi, g_mo), 2 * h.element_size()))
+                          _alignment(pa, pb, w2, b1) >= 16,
+                          _alignment(h, g_mi, g_mo) >= 2 * h.element_size())
     f32 = dict(dtype=torch.float32, device=dev)
     n_slot = max(it.n_slot, 1)
     e_sorted, dl = (torch.empty(n_edge, **f32),
@@ -749,10 +807,12 @@ def gather_pair_bwd(g, plans: AggPlans):
     _check_plans(plans, dev, n_node)
     dpa = torch.empty((n_node, hdim), dtype=g.dtype, device=dev)
     dpb = torch.empty_like(dpa)
+    la = row_launch(hdim, g.dtype, _alignment(g, dpa, dpb))
     code = _lib().gnn_gather_pair_bwd(
-        _DTYPE_CODES[g.dtype], n_node, hdim, _ptr(g),
-        _ptr(plans.recv.seg_ptr), _ptr(plans.recv.order),
-        _ptr(plans.send.seg_ptr), _ptr(plans.send.order),
+        _DTYPE_CODES[g.dtype], n_node, hdim, la.item_bytes, la.log_lanes,
+        _ptr(g), *(x for p in (plans.recv, plans.send)
+                   for x in (_ptr(p.seg_ptr), _ptr(p.order),
+                             _ptr(p.long_seg), len(p.long_seg))),
         _ptr(dpa), _ptr(dpb), _stream(g))
     _raise_on_error(code, "gnn_gather_pair_bwd")
     gather_pair_bwd.launches += 1
@@ -803,12 +863,18 @@ def _sddmm(name, plan: EdgePlan, a, b, u=None, v=None):
     _check_cuda(dev, a.dtype, **tabs)
     _check_plan(name, plan, dev, n)
     out = torch.empty(plan.n_edge, dtype=torch.float32, device=dev)
-    code = _lib().gnn_sddmm(
-        _DTYPE_CODES[a.dtype], n, d, _ptr(a), _ptr(b),
-        None if u is None else _ptr(u), None if v is None else _ptr(v),
-        _ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order),
-        _ptr(out), _stream(a))
-    _raise_on_error(code, "gnn_sddmm")
+    ids = (_ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order))
+    if u is None:
+        la = row_launch(d, a.dtype, _alignment(a, b))
+        code = _lib().gnn_sddmm(_DTYPE_CODES[a.dtype], n, d, la.item_bytes,
+                                la.log_lanes, _ptr(a), _ptr(b), *ids,
+                                _ptr(plan.long_seg), len(plan.long_seg),
+                                _ptr(out), _stream(a))
+    else:
+        code = _lib().gnn_sddmm_dual(_DTYPE_CODES[a.dtype], n, d, _ptr(a),
+                                     _ptr(b), _ptr(u), _ptr(v), *ids,
+                                     _ptr(out), _stream(a))
+    _raise_on_error(code, f"gnn_{name}")
     wrapper.launches += 1
     return out
 

@@ -20,6 +20,7 @@ from gnn_fpga_tpu_torch.core import graph as tg
 from gnn_fpga_tpu_torch.models import mpnn as tm
 from gnn_fpga_tpu_torch.ops.cuda import segment_sum as tss
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
+from gnn_fpga_tpu_torch.ops.segment import segment_sum
 
 pytestmark = pytest.mark.cuda
 
@@ -540,3 +541,127 @@ def test_spmm_vjp_matches_plain_autograd(dev, dtype):
     assert dh.dtype == dtype and dw.dtype == torch.float32
     torch.testing.assert_close(dh.float(), dh_r, **TOL[dtype])
     torch.testing.assert_close(dw, dw_r, **TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# The lane-group row kernels: gather_pair_bwd (csrc/spmm_bwd.cu) and sddmm
+# (csrc/spmm_ops.cu), rows read as in csrc/rows.cuh
+# ---------------------------------------------------------------------------
+
+ROW_WIDTHS = [1, 12, 40, 64, 66, 67, 256]
+
+
+def _row_case(seed, v, e, width, dev, dtype, kind="random", order="recv",
+              offset="none"):
+    """Tables g [E, width] and a, b, u, w [V, width] over ``kind`` edges:
+    ``random`` on the first 3/4 of the nodes (the rest have none) with 20
+    pad edges on node v-1; ``hub`` the same and 1,120 more that node 0
+    receives from node 1; ``pad_only`` every edge on node v-1.  ``order``:
+    edges receiver-major (the recv plan's order is the identity, so its
+    side reads g in order) or ``shuffled`` (both sides read g scattered).
+    ``offset``: the tables as allocated, as a row slice of a larger
+    contiguous table (``row``), or one element into one (``element``:
+    every base address off 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, v * 3 // 4, e)
+    r = rng.integers(0, v * 3 // 4, e)
+    pad = slice(0, e) if kind == "pad_only" else slice(e - 20, e)
+    s[pad] = r[pad] = v - 1
+    if kind == "hub":
+        s = np.concatenate([s, np.full(1120, 1)])
+        r = np.concatenate([r, np.zeros(1120, np.int64)])
+    perm = (np.argsort(r, kind="stable") if order == "recv"
+            else rng.permutation(len(s)))
+    s, r = s[perm].astype(np.int32), r[perm].astype(np.int32)
+
+    def table(rows):
+        t = rng.standard_normal((rows + 1, width)).astype(np.float32)
+        t = torch.from_numpy(t).to(dev, dtype)
+        if offset == "row":
+            return t[1:]
+        if offset == "element":
+            return t.flatten()[1:rows * width + 1].view(rows, width)
+        return t[:rows].contiguous()
+
+    return dict(plans=tsp.build_agg_plans(s, r, v).to(dev), v=v,
+                s=torch.from_numpy(s).to(dev), r=torch.from_numpy(r).to(dev),
+                g=table(len(s)), a=table(v), b=table(v), u=table(v),
+                w=table(v))
+
+
+def _row_runs(c):
+    """(kernel, plain) outputs of gather_pair_bwd (dpa, dpb), sddmm and
+    sddmm_dual, with the launches each wrapper counted.  gather_pair_bwd's
+    plain sums are taken in f64: the hub's 1,120-term sums cancel, and in
+    f32 the plain version's atomics on the card differ from one run to
+    the next by more than TOL there."""
+    p = c["plans"]
+    n0 = tsp.launch_counts()
+    got = (tsp.gather_pair_bwd(c["g"], p)
+           + (tsp.sddmm(c["a"], c["b"], p.recv),
+              tsp.sddmm_dual(c["a"], c["b"], c["u"], c["w"], p.recv)))
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "gather_pair_bwd": 1, "sddmm": 1, "sddmm_dual": 1}
+    g64 = c["g"].double()
+    want = (tuple(segment_sum(g64, ids, c["v"]).float()
+                  for ids in (c["s"], c["r"]))
+            + (tsp.sddmm_reference(c["a"], c["b"], c["r"], c["s"]),
+               tsp.sddmm_dual_reference(c["a"], c["b"], c["u"], c["w"],
+                                        c["r"], c["s"])))
+    return got, want
+
+
+def _check_rows(c, dtype):
+    got, want = _row_runs(c)
+    v, width = c["v"], c["g"].shape[1]
+    for x, y in zip(got[:2], want[:2]):               # [V, width] in T
+        assert x.dtype == dtype and x.shape == (v, width)
+        torch.testing.assert_close(x.float(), y, **TOL[dtype])
+    for x, y in zip(got[2:], want[2:]):               # [E] f32 from T
+        assert x.dtype == torch.float32 and x.shape == (len(c["s"]),)
+        torch.testing.assert_close(x, y, **TOL[torch.float32])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", ROW_WIDTHS)
+@pytest.mark.parametrize("order", ["recv", "shuffled"])
+@pytest.mark.parametrize("offset", ["none", "row", "element"])
+def test_row_kernels_match_plain_versions(dev, dtype, width, order, offset):
+    """Every item width (16 bytes down to one element: offset tables take
+    the narrow items) and lane-group size, edges receiver-major and
+    shuffled; nodes without edges get zero rows."""
+    c = _row_case(50, 300, 2048, width, dev, dtype, order=order,
+                  offset=offset)
+    la = tsp.row_launch(width, dtype, tsp._alignment(c["g"], c["a"], c["b"]))
+    if offset == "element":
+        assert la.item_bytes == dtype.itemsize
+    dpa, dpb = _check_rows(c, dtype)[:2]
+    lo = c["v"] * 3 // 4
+    assert not dpa[lo:-1].any() and not dpb[lo:-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["hub", "pad_only", "no_edges"])
+def test_row_kernels_on_odd_graphs(dev, dtype, kind):
+    """A node that receives 1,120 edges from one node (35 chunks of 32 in
+    either direction), a graph of pad edges only, a graph without
+    edges."""
+    c = _row_case(51, 200, 0 if kind == "no_edges" else 1024, 66, dev,
+                  dtype, kind="pad_only" if kind == "no_edges" else kind)
+    dpa, dpb = _check_rows(c, dtype)[:2]
+    if kind != "hub":
+        assert not dpa[:-1].any() and not dpb[:-1].any()
+
+
+def test_row_kernels_repeat_bit_for_bit(dev):
+    """Two launches give the same bits: no atomics, fixed-order sums."""
+    for dtype in (torch.float32, torch.bfloat16):
+        c = _row_case(52, 500, 4096, 66, dev, dtype, kind="hub",
+                      order="shuffled")
+        c["g"] = c["g"][:, :64].contiguous()
+        a, b = _row_runs(c)[0], _row_runs(c)[0]
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
