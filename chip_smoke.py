@@ -21,17 +21,20 @@ it:
    and its operations over the f32 rate) and, where one PyTorch call
    computes the same function, that call's time; then the fused
    iteration's two kernels on the fullevent and the hit graph, and the
-   lane-group row kernels (gather_pair_bwd, sddmm) on the fullevent graph,
-   each with and without its pad edges: checked, two launches equal bit
-   for bit, and timed (gather_pair_bwd's two directions also alone);
+   lane-group row kernels (gather_pair_bwd, sddmm, aggregate_pair and
+   aggregate_pair_bwd) on the fullevent graph, each with and without its
+   pad edges: checked, two launches equal bit for bit, and timed
+   (gather_pair_bwd's two directions also alone, and aggregate_pair with
+   its weights read in sorted order beside the sorted copy's cost);
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
 5. training: parameter gradients on the kernel route (fused and unfused)
    against the ``sparse`` route on each of the 8 graphs, then 32 Adam
-   steps of the ``Trainer`` on
-   the fused bf16 route over the graphs and one unfused step, with
-   launch counts per step, finite and falling losses, and ms/step;
+   steps of the ``Trainer`` on the fused bf16 route over the graphs and 8
+   warm steps on the unfused route, with launch counts per step, finite
+   and falling losses, ms/step, and the unfused step's device time
+   (torch.profiler over 3 more steps);
 6. ops: the single-direction op API (``spmm`` with its backward,
    ``sddmm``, ``sddmm_dual``, ``sorted_segment_sum`` with its backward) on
    the packed graph, with launch counts, checked against the plain
@@ -78,6 +81,7 @@ N_NODE, N_EDGE = 15_848, 180_736      # padded as the JAX bench packs them
 HIDDEN, N_ITERS, INPUT_DIM = 64, 6, 2
 N_REQUESTS = 8
 N_STEPS = 32
+N_UNFUSED_STEPS = 8
 LEARNING_RATE, POS_WEIGHT = 3e-3, 8.0  # bench.py's fullevent TrainConfig
 GROUP, BLOCK_E = 4, 1056              # bench.py's fullevent "blocked b36"
 N_REAL_EDGE = N_SECTORS * (N_LAYERS - 1) * N_TRACKS * K_NN   # 180,576
@@ -512,6 +516,29 @@ def phase_kernels(g) -> dict:
     return out
 
 
+def print_probe_bounds():
+    """The bounds of the TPU-era probe kernels under benchmarks/, not
+    ported: the bytes one call moves at the probe's default shapes (inputs
+    read once, outputs written once) over the card's memory rate."""
+    v, e, d = 16_384, 131_072, 128
+    probes = {
+        # pa, pb, h, g_mi, g_mo in; dh, dpa, dpb out (H = D, f32); em,
+        # sig, two ids an edge; w2, b1
+        "probe_iter.py _stash_bwd": 4 * (8 * v * d + 4 * e + 2 * d),
+        # bf16 h in; three f32 or int32 values an edge; the f32 rank table
+        # out (V + 1 rows rounded up to 8, plus a tile of 256)
+        "probe_spmm_ablate.py k_full ... k_onehot":
+            2 * v * d + 12 * e + 4 * ((v + 8) // 8 * 8 + 256) * d,
+        "probe_ops.py passthrough": 2 * e * d * 4,
+        # ids and the f32 table in, one row an id out
+        "probe_ops.py gather_kernel_builder": 4 * (e + v * d + e * d),
+        "probe_bw.py passthrough": 2 * e * d * 4,
+    }
+    for name, nbytes in probes.items():
+        print(f"  probe {name}: {nbytes} bytes, bound "
+              f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)", flush=True)
+
+
 def without_pad_edges(g):
     """``g`` with its masked (pad) edges taken out, plans rebuilt."""
     from gnn_fpga_tpu_torch.core import graph as G
@@ -582,12 +609,18 @@ def phase_iteration(g_full) -> None:
 
 
 def phase_rows(g_full) -> None:
-    """The lane-group row kernels, gather_pair_bwd and sddmm, in f32 and
-    bf16 on the fullevent graph with and without its pad edges (the pad
-    node's 160-edge segments, walked by blocks of their own): against
-    their plain versions, two launches bit for bit, and timed; and
-    gather_pair_bwd's two halves, each timed alone by emptying the other
-    direction's plan (whose rows are then written as zeros)."""
+    """The lane-group row kernels, gather_pair_bwd, sddmm, aggregate_pair
+    and aggregate_pair_bwd, in f32 and bf16 on the fullevent graph with
+    and without its pad edges (the pad node's 160-edge segments, walked by
+    blocks of their own): against their plain versions, two launches bit
+    for bit, and timed; gather_pair_bwd's two halves, each timed alone by
+    emptying the other direction's plan (whose rows are then written as
+    zeros); and, timing only, aggregate_pair with its weights read in
+    sorted order (each plan's order replaced by the identity, which a
+    sorted copy of the weights would allow) beside the cost of making
+    that copy (sort_edge_weights for both plans), aggregate_pair_bwd on
+    the forward's row layout (spmm.AGG_BWD_LANE_ELEMS off), and both
+    kernels at D = 64, whose rows are whole 16-byte items."""
     from gnn_fpga_tpu_torch.ops.cuda import spmm
 
     dev = g_full.x.device
@@ -601,20 +634,39 @@ def phase_rows(g_full) -> None:
             plan, seg_ptr=torch.zeros_like(plan.seg_ptr),
             long_seg=plan.long_seg[:0])})
 
+    def in_sorted_order(plans):
+        ident = lambda p: dataclasses.replace(
+            p, order=torch.arange(p.n_edge, dtype=torch.int32,
+                                  device=p.order.device))
+        return dataclasses.replace(plans, recv=ident(plans.recv),
+                                   send=ident(plans.send))
+
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt).replace("torch.", "")
         rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dt)
-        a, b = rnd(N_NODE, d), rnd(N_NODE, d)
+        a, b, u = rnd(N_NODE, d), rnd(N_NODE, d), rnd(N_NODE, d)
+        tol, f32_tol = KERNEL_TOL[dt], KERNEL_TOL[torch.float32]
         for pad, g in (("pad", g_full), ("no pad", without_pad_edges(g_full))):
             grad, plans = rnd(g.n_edge, hdim), g.plans
+            w = torch.rand(g.n_edge, generator=gen).to(dev) * g.edge_mask
             s, r = g.senders, g.receivers
             gp_ref = lambda: spmm.gather_pair_bwd_reference(grad, s, r, N_NODE)
+            # name -> (kernel, plain version, tolerance of each output)
             runs = {
                 "gather_pair_bwd": (lambda: spmm.gather_pair_bwd(grad, plans),
-                                    gp_ref, KERNEL_TOL[dt]),
+                                    gp_ref, (tol, tol)),
                 "sddmm": (lambda: (spmm.sddmm(a, b, plans.recv),),
                           lambda: (spmm.sddmm_reference(a, b, r, s),),
-                          KERNEL_TOL[torch.float32]),
+                          (f32_tol,)),
+                "aggregate_pair": (
+                    lambda: spmm.aggregate_pair(a, w, plans),
+                    lambda: spmm.aggregate_pair_reference(a, w, s, r, N_NODE),
+                    (tol, tol)),
+                "aggregate_pair_bwd": (
+                    lambda: spmm.aggregate_pair_bwd(a, w, b, u, plans),
+                    lambda: spmm.aggregate_pair_bwd_reference(
+                        a, w, b, u, s, r, N_NODE),
+                    (tol, f32_tol)),
             }
             if pad == "pad":
                 recv_only, send_only = (emptied(plans, "send"),
@@ -622,25 +674,61 @@ def phase_rows(g_full) -> None:
                 runs["gather_pair_bwd, recv half alone"] = (
                     lambda: spmm.gather_pair_bwd(grad, recv_only),
                     lambda: (torch.zeros_like(gp_ref()[0]), gp_ref()[1]),
-                    KERNEL_TOL[dt])
+                    (tol, tol))
                 runs["gather_pair_bwd, send half alone"] = (
                     lambda: spmm.gather_pair_bwd(grad, send_only),
                     lambda: (gp_ref()[0], torch.zeros_like(gp_ref()[1])),
-                    KERNEL_TOL[dt])
+                    (tol, tol))
             what = (f"{tag} ({pad}, E={g.n_edge}, long segments "
                     f"{len(plans.recv.long_seg)} recv, "
                     f"{len(plans.send.long_seg)} send)")
-            for name, (kern, plain, tol) in runs.items():
+            for name, (kern, plain, tols) in runs.items():
                 first, again, ref = kern(), kern(), plain()
                 torch.cuda.synchronize()
                 if not all(torch.equal(x, y) for x, y in zip(first, again)):
                     fail(f"{name} {what}: two launches differ")
-                for x, y in zip(first, ref):
-                    compare(f"{name} {what}", x, y, *tol)
+                for x, y, t in zip(first, ref, tols):
+                    compare(f"{name} {what}", x, y, *t)
                 k1, k2 = time_ms(kern), time_ms(kern)
                 print(f"  {name} {what}: kernel {device_ms(k1, k2):.4f} ms "
                       f"({fmt_ms(k1)}, {fmt_ms(k2)}); two launches bit for "
                       f"bit", flush=True)
+            if pad == "pad":
+                # timing only: weights read in sorted order give other sums
+                sorted_plans = in_sorted_order(plans)
+                a64, b64, u64 = (t[:, :64].contiguous() for t in (a, b, u))
+
+                def bwd_on_forward_layout():
+                    kept = spmm.AGG_BWD_LANE_ELEMS
+                    spmm.AGG_BWD_LANE_ELEMS = None
+                    try:
+                        return spmm.aggregate_pair_bwd(a, w, b, u, plans)
+                    finally:
+                        spmm.AGG_BWD_LANE_ELEMS = kept
+
+                times = {
+                    "aggregate_pair, weights read through the order":
+                        lambda: spmm.aggregate_pair(a, w, plans),
+                    "aggregate_pair, weights read in sorted order":
+                        lambda: spmm.aggregate_pair(a, w, sorted_plans),
+                    "the sorted copy (sort_edge_weights, both plans)":
+                        lambda: (spmm.sort_edge_weights(w, plans.recv),
+                                 spmm.sort_edge_weights(w, plans.send)),
+                    "aggregate_pair_bwd on the forward's row layout":
+                        bwd_on_forward_layout,
+                    "aggregate_pair at D = 64":
+                        lambda: spmm.aggregate_pair(a64, w, plans),
+                    "aggregate_pair_bwd at D = 64":
+                        lambda: spmm.aggregate_pair_bwd(a64, w, b64, u64,
+                                                        plans),
+                }
+                ts = {k: [] for k in times}
+                for _ in range(2):          # in turns: a, b, c, a, b, c
+                    for k, f in times.items():
+                        ts[k].append(time_ms(f))
+                for k, t in ts.items():
+                    print(f"  {k} {what}: {device_ms(*t):.4f} ms "
+                          f"({', '.join(fmt_ms(x) for x in t)})", flush=True)
 
 
 def segment_ids(g, gen):
@@ -850,24 +938,29 @@ def phase_training(device, graphs, profile_path=None) -> dict:
 
     trainer = Trainer(model, tcfg)
     unfused = Trainer(variant_of(model, device, fused_iteration=False), tcfg)
-    Trainer(variant_of(model, device), tcfg).run_steps(graphs[:1])  # warm-up
+    for kw in ({}, dict(fused_iteration=False)):                # warm-up
+        Trainer(variant_of(model, device, **kw), tcfg).run_steps(graphs[:1])
     spmm.reset_launch_counts()
-    # --- the main path: 32 fused steps over the 8 graphs, 1 unfused step
+    # --- the main path: 32 fused steps over the 8 graphs, 8 unfused steps
     losses, step_ms = [], []
     for i in range(N_STEPS):
         t = time.perf_counter()
         losses.append(float(trainer.run_steps([graphs[i % N_REQUESTS]])[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
     fused_counts = spmm.launch_counts()
-    t = time.perf_counter()
-    unfused_loss = float(unfused.run_steps(graphs[:1])[0])
-    unfused_ms = (time.perf_counter() - t) * 1e3
+    unfused_losses, unfused_ms = [], []
+    for i in range(N_UNFUSED_STEPS):
+        t = time.perf_counter()
+        unfused_losses.append(
+            float(unfused.run_steps([graphs[i % N_REQUESTS]])[0]))
+        unfused_ms.append((time.perf_counter() - t) * 1e3)
     launches = spmm.launch_counts()
     # --- checks (not counted)
-    unfused_counts = {k: launches[k] - fused_counts[k] for k in launches}
+    unfused_counts = {k: (launches[k] - fused_counts[k]) / N_UNFUSED_STEPS
+                      for k in launches}
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
     print(f"  launches per fused step: {per_step}", flush=True)
-    print(f"  launches in the unfused step: {unfused_counts}", flush=True)
+    print(f"  launches per unfused step: {unfused_counts}", flush=True)
     expect_fused = expected_counts(iteration_pair=N_ITERS, gather_pair=1,
                                    iteration_pair_bwd=N_ITERS,
                                    gather_pair_bwd=1)
@@ -879,13 +972,14 @@ def phase_training(device, graphs, profile_path=None) -> dict:
         fail(f"fused steps launched {per_step} a step, "
              f"expected {expect_fused}")
     if unfused_counts != expect_unfused:
-        fail(f"the unfused step launched {unfused_counts}, "
+        fail(f"the unfused steps launched {unfused_counts} a step, "
              f"expected {expect_unfused}")
     first, last = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
     print(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
     print(f"  mean loss, first 8 steps {first:.4f}, last 8 steps "
-          f"{last:.4f}; unfused step {unfused_loss:.4f}", flush=True)
-    if not torch.isfinite(torch.tensor(losses + [unfused_loss])).all():
+          f"{last:.4f}; unfused steps "
+          f"{' '.join(f'{x:.4f}' for x in unfused_losses)}", flush=True)
+    if not torch.isfinite(torch.tensor(losses + unfused_losses)).all():
         fail("a training loss is not finite")
     if not last < first:
         fail("the training loss did not fall over 32 steps")
@@ -894,8 +988,16 @@ def phase_training(device, graphs, profile_path=None) -> dict:
     print(f"  fused bf16 train step: {mean_ms:.3f} ms/step (min "
           f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
           f"synchronised by the loss readback), "
-          f"{n_real / (mean_ms / 1e3):.4e} edges/s; unfused step "
-          f"{unfused_ms:.3f} ms", flush=True)
+          f"{n_real / (mean_ms / 1e3):.4e} edges/s", flush=True)
+    wall, busy = profiled(lambda: unfused.run_steps(graphs[:3]),
+                          profile_path and (profile_path,
+                                            "3 unfused training steps"))
+    print(f"  unfused bf16 train step: "
+          f"{sum(unfused_ms) / N_UNFUSED_STEPS:.3f} ms/step (min "
+          f"{min(unfused_ms):.3f}, max {max(unfused_ms):.3f}, over "
+          f"{N_UNFUSED_STEPS} warm steps); device time {busy / 3:.3f} "
+          f"ms/step (torch.profiler over 3 more steps; wall "
+          f"{wall / 3:.3f} ms/step with the profiler on)", flush=True)
     if profile_path:
         write_profile(profile_path, "a", "3 training steps",
                       lambda: trainer.run_steps(graphs[:3]))
@@ -1229,7 +1331,10 @@ def phase_node(device, profile_path=None) -> dict:
     return launches
 
 
-def write_profile(path, mode, what, run):
+def profiled(run, table_to=None) -> tuple:
+    """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler;
+    ``table_to``: ``(path, what)`` appends the profiler's table to
+    ``path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1245,14 +1350,23 @@ def write_profile(path, mode, what, run):
     busy_ms = sum(e.self_device_time_total for e in table
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
-    with open(path, mode) as f:
-        f.write(f"==== {what}: wall {wall_ms:.3f} ms, device busy "
-                f"{busy_ms:.3f} ms ====\n")
-        f.write(table.table(sort_by="cuda_time_total", row_limit=40))
-        f.write("\n")
-    print(f"  profile: {what}, wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}, profiler "
-          f"on); table in {path}", flush=True)
+    if table_to:
+        path, what = table_to
+        with open(path, "a") as f:
+            f.write(f"==== {what}: wall {wall_ms:.3f} ms, device busy "
+                    f"{busy_ms:.3f} ms ====\n")
+            f.write(table.table(sort_by="cuda_time_total", row_limit=40))
+            f.write("\n")
+        print(f"  profile: {what}, wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms (idle {1 - busy_ms / wall_ms:.1%}, "
+              f"profiler on); table in {path}", flush=True)
+    return wall_ms, busy_ms
+
+
+def write_profile(path, mode, what, run):
+    if mode == "w":
+        open(path, "w").close()
+    profiled(run, (path, what))
 
 
 def main():
@@ -1270,6 +1384,7 @@ def main():
     print(f"graphs: {N_REQUESTS} packed graphs built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = phase_kernels(graphs[0])
+    print_probe_bounds()
     phase_iteration(graphs[0])
     phase_rows(graphs[0])
     paths = (phase_serving(device, graphs, args.profile),

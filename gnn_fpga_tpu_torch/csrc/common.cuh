@@ -118,9 +118,11 @@ __device__ __forceinline__ void store_row(T* row, const float (&src)[kC],
   }
 }
 
-// One CSR direction: segment offsets, gathered endpoint per sorted edge,
-// and where each sorted edge's weight lives in the weight vector (the
-// plan's order; null where a kernel reads no weights).
+// One CSR direction: segment offsets, the row each sorted edge reads (its
+// other endpoint's; for a table in edge order, gather_pair_bwd's g, the
+// edge's own: the plan's order), and where each sorted edge's weight or
+// edge-order output lives (the plan's order; null where a kernel needs
+// neither).
 struct Side {
   const int32_t* seg_ptr;  // [V + 1]
   const int32_t* oth;      // [E]
@@ -163,11 +165,5 @@ int dispatch(int dtype, int width, Launch launch) {
   if (c == 4) return launch(Variant<__nv_bfloat16, 4>{});
   return launch(Variant<__nv_bfloat16, 8>{});
 }
-
-// One direction of the weighted aggregation of spmm.cu (its pair kernel
-// with a single side): out[n] = sum_{j in side's segment n} w[w_idx[j]] *
-// h[oth[j]], in T, zero rows for nodes without edges.  Defined in spmm.cu.
-int aggregate_one_side(int dtype, int n_node, int d, const void* h,
-                       const float* w, Side side, void* out, void* stream);
 
 }  // namespace gnn

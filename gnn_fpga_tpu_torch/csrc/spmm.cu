@@ -1,22 +1,45 @@
 // Hand-written Hopper kernel for the SegmentClassifier's edge-weighted
 // neighbour aggregations with the weights given (the unfused iteration's
-// aggregate_pair, and one direction of it, spmm):
+// aggregate_pair):
 //
 //     mi[n] = sum_{e: recv[e]==n} w[e] * h[send[e]]
 //     mo[n] = sum_{e: send[e]==n} w[e] * h[recv[e]]
 //
-// The fused iteration, which scores the edges itself, is iteration_fwd.cu.
+// The fused iteration, which scores the edges itself, is iteration_fwd.cu;
+// the single-direction spmm is spmm_ops.cu.
 //
-// Design.  Edges come in two CSR orders (the recv-sorted and send-sorted
-// plans of ops/cuda/spmm.py): in the recv plan the edges of receiver n are
-// sorted_oth[seg_ptr[n] : seg_ptr[n+1]], gathered senders; the send plan is
-// its transpose.  One warp owns one (node, direction) pair: it walks its
-// node's CSR segment, accumulates w * h[oth] in f32 registers (lane l holds
-// columns l, l+32, ...), and writes the node's output row once.  Every row
-// is written, zero for nodes without edges, so outputs need no clearing; no
-// atomics are used, so results are identical from run to run.  Launched
-// with one side only (n_sides = 1), the kernel is the single-direction
-// aggregation of spmm_ops.cu (gnn::aggregate_one_side).
+// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_agg_pair_kernel (and its
+// prebuilt-one-hot twin _agg_pair_kernel_pre).  The TPU kernel turns every
+// gather into a windowed one-hot matmul because Mosaic lacks a large
+// dynamic row gather; on Hopper a row gather is native, so the kernel
+// reads rows directly and keeps only the sorted edge orders.
+//
+// Design: rows.cuh's segment_rows_kernel, weighted.  Edges come in two CSR
+// orders (the recv-sorted and send-sorted plans of ops/cuda/spmm.py); one
+// warp owns one (node, direction), a node's two side by side, and sums w *
+// h[oth] over its segment, a lane group an edge: the fullevent D = 66 rows
+// (132 bytes in bf16, 264 in f32) are 33 items of 4 or 8 bytes, 5 a lane
+// on 8 lanes, so one warp instruction reads 4 whole rows.  Each chunk of
+// 32 edges brings its other endpoints and weights in two coalesced loads
+// (the weights read through the plan's order, in edge order).  The groups'
+// rows are added in a fixed order and the row written once, zero for
+// nodes without edges; a segment of more than 32 edges (the packed graph's
+// pad node has 160 each way) is walked by a block of its own at the front
+// of the grid, whose warps' rows are added in warp order.  No atomics:
+// results are identical from run to run.
+//
+// What bounds it on this card: not bytes.  At the fullevent shapes
+// (V = 15,848, E = 180,736) it gathers one h row per edge and direction,
+// 2 E D 2 B ~ 48 MB in bf16, from a 2 MB table that stays in the 50 MB
+// L2, against a bound that counts h once (2.5 us); each warp's walk is a
+// chain of dependent loads (offsets, ids and weights, rows) whose latency
+// the resident warps hide, and each 132-byte row takes 5 loads a lane of
+// 4-byte items (4-byte alignment allows no wider).  Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md): 0.026 ms in bf16 and 0.024 ms in
+// f32, the same with and without the pad edges, against 0.036 and 0.033
+// for the first design (a warp a node and direction, one element a lane,
+// one edge in flight); at D = 64, whose rows are one 16-byte item on each
+// of 8 lanes, the same kernel takes 0.016 ms.
 //
 // Types: T is float or __nv_bfloat16 for the tables; edge weights are f32;
 // accumulation is f32; outputs are written in T.
@@ -24,116 +47,29 @@
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError().
 
-#include "common.cuh"
-
-namespace {
-
-using gnn::from_f32;
-using gnn::kWarp;
-using gnn::kWarpsPerBlock;
-using gnn::Side;
-using gnn::to_f32;
-
-// Register-resident row chunks per lane: widths up to 8 * 32 = 256.
-constexpr int kMaxChunks = 8;
-
-// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_agg_pair_kernel.  The TPU
-// kernel turns every gather into a windowed one-hot matmul because Mosaic
-// lacks a large dynamic row gather; on Hopper a row gather is native, so
-// the kernel reads rows directly and keeps only the sorted edge orders.
-//
-// What bounds it on this card: the row gathers, one h row per edge and
-// direction (2 E D 2 B ~ 48 MB in bf16 at the fullevent shapes) from
-// tables that stay in L2, one edge in flight per warp, and the longest
-// CSR segment (the packed graph's pad node, 160 edges) sets a tail.
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-pair_kernel(int n_node, int n_sides, int d, const T* __restrict__ h,
-            const float* __restrict__ wvec, Side recv, Side send,
-            T* __restrict__ mi, T* __restrict__ mo) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long gw = static_cast<long>(blockIdx.x) * kWarpsPerBlock +
-                  (threadIdx.x / kWarp);
-  if (gw >= static_cast<long>(n_sides) * n_node) return;
-  // Warps [0, V) aggregate by receiver (mi), warps [V, 2V) by sender (mo).
-  const bool by_send = gw >= n_node;
-  const int n = static_cast<int>(by_send ? gw - n_node : gw);
-  const Side side = by_send ? send : recv;
-  T* __restrict__ out = by_send ? mo : mi;
-
-  float acc[kMaxChunks];
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) acc[c] = 0.f;
-
-  const int beg = side.seg_ptr[n];
-  const int end = side.seg_ptr[n + 1];
-  for (int j = beg; j < end; ++j) {
-    const long o = side.oth[j];
-    const float wj = wvec[side.w_idx[j]];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int k = c * kWarp + lane;
-      if (k < d) acc[c] += wj * to_f32(h[o * d + k]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int k = c * kWarp + lane;
-    if (k < d) out[static_cast<long>(n) * d + k] = from_f32<T>(acc[c]);
-  }
-}
-
-template <typename T>
-int launch(int n_node, int n_sides, int d, const void* h, const float* wvec,
-           Side recv, Side send, void* mi, void* mo, void* stream) {
-  if (d > kMaxChunks * kWarp) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_node > 0) {
-    const unsigned blocks =
-        gnn::blocks_for_warps(static_cast<long>(n_sides) * n_node);
-    pair_kernel<T><<<blocks, kWarpsPerBlock * kWarp, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        n_node, n_sides, d, static_cast<const T*>(h), wvec, recv, send,
-        static_cast<T*>(mi), static_cast<T*>(mo));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-namespace gnn {
-
-int aggregate_one_side(int dtype, int n_node, int d, const void* h,
-                       const float* w, Side side, void* out, void* stream) {
-  if (dtype == 0)
-    return launch<float>(n_node, 1, d, h, w, side, side, out, nullptr,
-                         stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(n_node, 1, d, h, w, side, side, out,
-                                 nullptr, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace gnn
+#include "rows.cuh"
 
 extern "C" {
 
-// w: [E] f32 edge weights in EDGE order; recv_order/send_order map each
-// sorted position to its edge.
-int gnn_aggregate_pair_fwd(int dtype, int n_node, int d, const void* h,
-                           const float* w, const int32_t* recv_ptr,
-                           const int32_t* recv_oth,
+// h, mi, mo: [n_node, d] in dtype (0 = float32, 1 = bfloat16); w: [E] f32
+// edge weights in EDGE order; item_bytes, log_lanes: ops/cuda/spmm.py::
+// row_launch (rows.cuh).  Per plan: CSR offsets, the other endpoint and
+// the edge of each sorted position, and the nodes with more than
+// kLongSegment edges (EdgePlan.long_seg).
+int gnn_aggregate_pair_fwd(int dtype, int n_node, int d, int item_bytes,
+                           int log_lanes, const void* h, const float* w,
+                           const int32_t* recv_ptr, const int32_t* recv_oth,
                            const int32_t* recv_order,
+                           const int32_t* recv_long, int n_recv_long,
                            const int32_t* send_ptr, const int32_t* send_oth,
-                           const int32_t* send_order, void* mi, void* mo,
-                           void* stream) {
-  const Side recv{recv_ptr, recv_oth, recv_order};
-  const Side send{send_ptr, send_oth, send_order};
-  if (dtype == 0)
-    return launch<float>(n_node, 2, d, h, w, recv, send, mi, mo, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(n_node, 2, d, h, w, recv, send, mi, mo,
-                                 stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+                           const int32_t* send_order,
+                           const int32_t* send_long, int n_send_long,
+                           void* mi, void* mo, void* stream) {
+  const gnn::RowItems ri{d, dtype == 0 ? 4 : 2, item_bytes, log_lanes};
+  return gnn::launch_segment_rows<true>(
+      dtype, n_node, ri, h, w, gnn::Side{recv_ptr, recv_oth, recv_order},
+      gnn::Side{send_ptr, send_oth, send_order}, recv_long, n_recv_long,
+      send_long, n_send_long, mi, mo, stream);
 }
 
 }  // extern "C"

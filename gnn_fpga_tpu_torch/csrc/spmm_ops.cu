@@ -49,6 +49,41 @@ using gnn::Vec;
 using gnn::Walk;
 using gnn::warp_sum;
 
+// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_spmm_kernel (reached from
+// spmm), in the first design of the port's aggregation, kept for spmm's
+// own redesign: one warp owns one seg node, walks its segment one
+// edge at a time, and accumulates w[order[j]] * h[oth[j]] in f32
+// registers, lane l holding columns l, l+32, ...; every row is written
+// once, zero for nodes without edges.
+//
+// What bounds it on this card: the row gathers, one h row per edge (E D 2
+// B ~ 24 MB in bf16 at the fullevent shapes) from a table that stays in
+// L2, one edge in flight per warp, each edge's weight a scattered 4-byte
+// load, and the longest segment (the packed graph's pad node, 160 edges)
+// sets a tail.
+template <typename T, int kC>
+__global__ void __launch_bounds__(kThreads)
+spmm_kernel(int n_node, int d, const T* __restrict__ h,
+            const float* __restrict__ w, Side side, T* __restrict__ out) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long n = static_cast<long>(blockIdx.x) * kWarpsPerBlock +
+                 (threadIdx.x / kWarp);
+  if (n >= n_node) return;
+  float acc[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+  for (int j = side.seg_ptr[n]; j < side.seg_ptr[n + 1]; ++j) {
+    const long o = side.oth[j];
+    const float wj = w[side.w_idx[j]];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int k = c * kWarp + lane;
+      if (k < d) acc[c] += wj * to_f32(h[o * d + k]);
+    }
+  }
+  store_row<kC>(out + n * d, acc, d, lane);
+}
+
 // Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_sddmm_kernel (reached from
 // sddmm).  One warp per seg node n holds a[n] in registers and walks n's
 // segment (a long segment goes to a block of its own, rows.cuh); its
@@ -210,15 +245,21 @@ segment_sum_kernel(int n_node, int d, const T* __restrict__ msgs,
 
 extern "C" {
 
-// Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_spmm_kernel.  The kernel is
-// one side of spmm.cu's pair kernel, unscored (gnn::aggregate_one_side).
 // dtype: 0 = float32, 1 = bfloat16 (h, out).  w: [E] f32 edge weights in
 // EDGE order; order maps each sorted position of the plan to its edge.
 int gnn_spmm(int dtype, int n_node, int d, const void* h, const float* w,
              const int32_t* seg_ptr, const int32_t* oth,
              const int32_t* order, void* out, void* stream) {
-  return gnn::aggregate_one_side(dtype, n_node, d, h, w,
-                                 Side{seg_ptr, oth, order}, out, stream);
+  const unsigned blocks = gnn::blocks_for_warps(n_node);
+  return dispatch(dtype, d, [&](auto var) {
+    using T = typename decltype(var)::type;
+    if (blocks > 0)
+      spmm_kernel<T, decltype(var)::chunks>
+          <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              n_node, d, static_cast<const T*>(h), w,
+              Side{seg_ptr, oth, order}, static_cast<T*>(out));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // a, b: [n_node, d] in dtype (as above); item_bytes, log_lanes:
@@ -230,14 +271,11 @@ int gnn_sddmm(int dtype, int n_node, int d, int item_bytes, int log_lanes,
               const int32_t* oth, const int32_t* order,
               const int32_t* long_seg, int n_long, float* out,
               void* stream) {
-  if (n_node < 0 || n_long < 0 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
   const RowItems ri{d, dtype == 0 ? 4 : 2, item_bytes, log_lanes};
   const void* tables[] = {a, b};
-  const int err = ri.check(tables, 2);
-  if (err != 0) return err;
   const unsigned blocks = n_long + gnn::blocks_for_warps(n_node);
-  return dispatch_rows(dtype, ri, [&](auto var) {
+  return dispatch_rows(dtype, n_node, ri, tables, 2, n_long, 0,
+                       [&](auto var) {
     using R = decltype(var);
     using Item = typename R::Item;
     if (blocks > 0)

@@ -31,10 +31,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gnn_iteration_pair_fwd": ([_I] * 8 + [_P] * 12 + [_I] * 2 + [_P, _I]
                                + [_P] * 6, _I),
-    "gnn_aggregate_pair_fwd": ([_I] * 3 + [_P] * 11, _I),
+    "gnn_aggregate_pair_fwd": ([_I] * 5 + [_P] * 2 + ([_P] * 4 + [_I]) * 2
+                               + [_P] * 3, _I),
     "gnn_iteration_pair_bwd": ([_I] * 12 + [_P] * 13 + [_I] * 2 + [_P, _I]
                                + [_P] * 13, _I),
-    "gnn_aggregate_pair_bwd": ([_I] * 3 + [_P] * 13, _I),
+    "gnn_aggregate_pair_bwd": ([_I] * 5 + [_P] * 4 + ([_P] * 4 + [_I]) * 2
+                               + [_P] * 3, _I),
     "gnn_gather_pair_bwd": ([_I] * 5 + [_P] + ([_P] * 3 + [_I]) * 2
                             + [_P] * 3, _I),
     "gnn_gather_pair_fwd": ([_I] * 4 + [_P] * 6, _I),

@@ -34,8 +34,9 @@ The plans keep the JAX package's receiver-sorted and sender-sorted edge
 orders, from a stable argsort, and add CSR row pointers, so each node's
 row is reduced by one warp without atomics; the fused iteration's kernels
 walk work items of at most :data:`ITEM_EDGES` edges instead
-(:class:`IterItems`), and :func:`sddmm` and :func:`gather_pair_bwd` give
-each segment of more than :data:`LONG_SEGMENT` edges a block of warps
+(:class:`IterItems`), and the lane-group row kernels (:func:`aggregate_pair`
+and its backward, :func:`gather_pair_bwd`, :func:`sddmm`) give each
+segment of more than :data:`LONG_SEGMENT` edges a block of warps
 (``EdgePlan.long_seg``), so that no long segment sets a tail.  The TPU's
 gather windows, prebuilt one-hots and tile padding are not needed: Hopper
 gathers rows natively.
@@ -73,8 +74,8 @@ class EdgePlan:
       seg_ptr:    [V+1] CSR offsets: node n's edges are
                         ``sorted_*[seg_ptr[n]:seg_ptr[n+1]]``
       long_seg:   [S]   the nodes with more than :data:`LONG_SEGMENT`
-                        edges, ascending; :func:`sddmm` and
-                        :func:`gather_pair_bwd` walk each with a block
+                        edges, ascending; the lane-group row kernels
+                        walk each with a block
     """
 
     order: torch.Tensor
@@ -160,9 +161,9 @@ class AggPlans:
 
 
 # Segments longer than this are walked by the eight warps of a block in
-# sddmm and gather_pair_bwd (csrc/rows.cuh kLongSegment), other segments
+# the lane-group row kernels (csrc/rows.cuh kLongSegment), other segments
 # by one warp: the packed fullevent graph's pad node has 160 edges in each
-# direction, and one warp walking them set both kernels' tails
+# direction, and one warp walking them set the first designs' tails
 # (PERF.md).
 LONG_SEGMENT = 32
 
@@ -344,10 +345,18 @@ def iteration_launch(n_edge: int, d: int, hdim: int, dtype,
                       slot_h=slot_h, slot_d=slot_d)
 
 
+# Elements a lane of aggregate_pair_bwd holds of each row: its recv walk
+# keeps two rows an edge in flight beside the node's own two, and with
+# more than 5 elements a lane (the fullevent D = 66 on 8 lanes: 10) its
+# registers allow two or three blocks an SM instead of four (PERF.md).
+AGG_BWD_LANE_ELEMS = 5
+
+
 @dataclasses.dataclass(frozen=True)
 class RowLaunch:
-    """How the kernels of ``csrc/rows.cuh`` (:func:`sddmm`,
-    :func:`gather_pair_bwd`) read one call's rows: as items of
+    """How the kernels of ``csrc/rows.cuh`` (:func:`aggregate_pair` and
+    :func:`aggregate_pair_bwd`, :func:`gather_pair_bwd`, :func:`sddmm`)
+    read one call's rows: as items of
     ``item_bytes`` (16, 8, 4 or, in bf16, 2 bytes), in groups of ``2 **
     log_lanes`` lanes, one edge a group, lane ``c`` holding items ``c, c +
     lanes, ...`` (at most 8)."""
@@ -357,7 +366,8 @@ class RowLaunch:
 
 
 @functools.lru_cache(maxsize=256)
-def row_launch(width: int, dtype, align: int = 16) -> RowLaunch:
+def row_launch(width: int, dtype, align: int = 16,
+               lane_elems: int | None = None) -> RowLaunch:
     """The :class:`RowLaunch` for rows of ``width`` elements of ``dtype``
     in tables whose base addresses are multiples of ``align`` bytes
     (:func:`_alignment`): the widest item, at most 16 bytes, that divides
@@ -366,16 +376,25 @@ def row_launch(width: int, dtype, align: int = 16) -> RowLaunch:
     16-byte item on each of 8 lanes in bf16, of 16 lanes in f32; the
     fullevent D = 66 (132-byte rows in bf16, 264 in f32) is 33 items of 4
     or 8 bytes, 5 a lane on 8 lanes, which ran faster than 3 on 16 or 2 on
-    32 (PERF.md)."""
+    32 (PERF.md).
+
+    ``lane_elems``: a row of more than 32 items that would put more than
+    this many elements on a lane is read instead as one-element items, on
+    the fewest lanes (at most 32) that hold at most ``lane_elems`` each.
+    :func:`aggregate_pair_bwd` takes 5, which holds its registers to four
+    blocks an SM: D = 66 is then 5 elements a lane on 16 lanes."""
     elem = dtype.itemsize
     item = 16
     while item > elem and (width * elem % item or align % item):
         item //= 2
     n_items = width * elem // item
     per_lane = 1 if n_items <= 32 else 8
-    return RowLaunch(
-        item_bytes=item,
-        log_lanes=(max(-(-n_items // per_lane), 1) - 1).bit_length())
+    log = (max(-(-n_items // per_lane), 1) - 1).bit_length()
+    if (lane_elems and n_items > 32
+            and -(-n_items >> log) * (item // elem) > lane_elems):
+        item = elem
+        log = (min(32, -(-width // lane_elems)) - 1).bit_length()
+    return RowLaunch(item_bytes=item, log_lanes=log)
 
 
 def _alignment(*tensors) -> int:
@@ -595,6 +614,15 @@ def _lib():
     return load_library()
 
 
+def _plan_args(plans: AggPlans) -> tuple:
+    """The aggregation kernels' arguments for each plan, recv then send:
+    CSR offsets, other endpoints, edge order, long segments and their
+    count."""
+    return tuple(x for p in (plans.recv, plans.send)
+                 for x in (_ptr(p.seg_ptr), _ptr(p.sorted_oth), _ptr(p.order),
+                           _ptr(p.long_seg), len(p.long_seg)))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors take the plain version, CUDA tensors launch
 # ---------------------------------------------------------------------------
@@ -651,12 +679,10 @@ def _aggregate_pair_fwd(h, w, plans):
     v, d = h.shape
     mi = torch.empty_like(h)
     mo = torch.empty_like(h)
+    la = row_launch(d, h.dtype, _alignment(h, mi, mo))
     code = _lib().gnn_aggregate_pair_fwd(
-        _DTYPE_CODES[h.dtype], v, d, _ptr(h), _ptr(w),
-        _ptr(plans.recv.seg_ptr), _ptr(plans.recv.sorted_oth),
-        _ptr(plans.recv.order), _ptr(plans.send.seg_ptr),
-        _ptr(plans.send.sorted_oth), _ptr(plans.send.order),
-        _ptr(mi), _ptr(mo), _stream(h))
+        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
+        _ptr(w), *_plan_args(plans), _ptr(mi), _ptr(mo), _stream(h))
     _raise_on_error(code, "gnn_aggregate_pair_fwd")
     aggregate_pair.launches += 1
     return mi, mo
@@ -747,12 +773,12 @@ def aggregate_pair_bwd(h, w, g_mi, g_mo, plans: AggPlans):
     _check_plans(plans, dev, v)
     dh = torch.empty_like(h)
     dw = torch.empty_like(w)
+    la = row_launch(d, h.dtype, _alignment(h, g_mi, g_mo, dh),
+                    lane_elems=AGG_BWD_LANE_ELEMS)
     code = _lib().gnn_aggregate_pair_bwd(
-        _DTYPE_CODES[h.dtype], v, d, _ptr(h), _ptr(w), _ptr(g_mi),
-        _ptr(g_mo), _ptr(plans.recv.seg_ptr), _ptr(plans.recv.sorted_oth),
-        _ptr(plans.recv.order), _ptr(plans.send.seg_ptr),
-        _ptr(plans.send.sorted_oth), _ptr(plans.send.order),
-        _ptr(dh), _ptr(dw), _stream(h))
+        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
+        _ptr(w), _ptr(g_mi), _ptr(g_mo), *_plan_args(plans), _ptr(dh),
+        _ptr(dw), _stream(h))
     _raise_on_error(code, "gnn_aggregate_pair_bwd")
     aggregate_pair_bwd.launches += 1
     return dh, dw

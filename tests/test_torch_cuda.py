@@ -555,7 +555,8 @@ def _row_case(seed, v, e, width, dev, dtype, kind="random", order="recv",
               offset="none"):
     """Tables g [E, width] and a, b, u, w [V, width] over ``kind`` edges:
     ``random`` on the first 3/4 of the nodes (the rest have none) with 20
-    pad edges on node v-1; ``hub`` the same and 1,120 more that node 0
+    pad edges on node v-1; ``dense`` the same on 24 nodes, ~e/24 edges a
+    node each way; ``hub`` the same as ``random`` and 1,120 more that node 0
     receives from node 1; ``pad_only`` every edge on node v-1.  ``order``:
     edges receiver-major (the recv plan's order is the identity, so its
     side reads g in order) or ``shuffled`` (both sides read g scattered).
@@ -563,8 +564,9 @@ def _row_case(seed, v, e, width, dev, dtype, kind="random", order="recv",
     contiguous table (``row``), or one element into one (``element``:
     every base address off 16-byte alignment)."""
     rng = np.random.default_rng(seed)
-    s = rng.integers(0, v * 3 // 4, e)
-    r = rng.integers(0, v * 3 // 4, e)
+    hi = 24 if kind == "dense" else v * 3 // 4
+    s = rng.integers(0, hi, e)
+    r = rng.integers(0, hi, e)
     pad = slice(0, e) if kind == "pad_only" else slice(e - 20, e)
     s[pad] = r[pad] = v - 1
     if kind == "hub":
@@ -663,5 +665,93 @@ def test_row_kernels_repeat_bit_for_bit(dev):
                       order="shuffled")
         c["g"] = c["g"][:, :64].contiguous()
         a, b = _row_runs(c)[0], _row_runs(c)[0]
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The aggregation kernels: aggregate_pair (csrc/spmm.cu) and its backward
+# (csrc/spmm_bwd.cu), rows read as in csrc/rows.cuh; spmm (csrc/spmm_ops.cu)
+# on the same graphs
+# ---------------------------------------------------------------------------
+
+def _agg_runs(c):
+    """(kernel, plain) outputs of aggregate_pair (mi, mo), its backward
+    (dh, dw) and spmm over the recv plan, with h = a, g_mi = b, g_mo = u
+    and edge weights in [0, 1); the plain sums taken in f64, as the hub's
+    1,120-term sums may cancel."""
+    p, v = c["plans"], c["v"]
+    s, r = c["s"].long(), c["r"].long()
+    rng = np.random.default_rng(len(c["s"]))
+    w = torch.from_numpy(rng.random(len(s)).astype(np.float32)).to(
+        c["a"].device)
+    n0 = tsp.launch_counts()
+    got = (tsp.aggregate_pair(c["a"], w, p)
+           + tsp.aggregate_pair_bwd(c["a"], w, c["b"], c["u"], p)
+           + (tsp.spmm_raw(c["a"], w, p.recv),))
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "aggregate_pair": 1, "aggregate_pair_bwd": 1, "spmm": 1}
+    h, g_mi, g_mo = (c[k].double() for k in ("a", "b", "u"))
+    w64 = w.double()[:, None]
+    mi = segment_sum(h[s] * w64, r, v)
+    mo = segment_sum(h[r] * w64, s, v)
+    dh = segment_sum(g_mi[r] * w64, s, v) + segment_sum(g_mo[s] * w64, r, v)
+    dw = (g_mi[r] * h[s]).sum(1) + (g_mo[s] * h[r]).sum(1)
+    return got, tuple(t.float() for t in (mi, mo, dh, dw, mi))
+
+
+def _check_agg(c, dtype):
+    got, want = _agg_runs(c)
+    v, width = c["v"], c["a"].shape[1]
+    for name, x, y in zip(("mi", "mo", "dh", "dw", "spmm"), got, want):
+        if name == "dw":                              # [E] f32 from T
+            assert x.dtype == torch.float32 and x.shape == (len(c["s"]),)
+            torch.testing.assert_close(x, y, **TOL[torch.float32], msg=name)
+        else:                                         # [V, width] in T
+            assert x.dtype == dtype and x.shape == (v, width)
+            torch.testing.assert_close(x.float(), y, **TOL[dtype], msg=name)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [12, 64, 66])
+@pytest.mark.parametrize("kind", ["random", "dense", "hub", "pad_only"])
+@pytest.mark.parametrize("offset", ["none", "element"])
+def test_aggregation_kernels_match_plain_versions(dev, dtype, width, kind,
+                                                  offset):
+    """Random edges on 3/4 of the nodes (the rest have none, 20 pad edges
+    on node v-1), the same on 24 nodes (~85 edges a node each way: long
+    segments everywhere), a 1,120-edge hub (a long segment each way,
+    on two nodes), and pad edges only (one node, long both ways); tables
+    as allocated or one element in (narrow items)."""
+    c = _row_case(53, 300, 2048, width, dev, dtype, kind=kind,
+                  order="shuffled", offset=offset)
+    la = tsp.row_launch(width, dtype, tsp._alignment(c["a"], c["b"], c["u"]))
+    if offset == "element":
+        assert la.item_bytes == dtype.itemsize
+    mi, mo, dh = _check_agg(c, dtype)[:3]
+    if kind == "random":            # nodes without edges get zero rows
+        lo = c["v"] * 3 // 4
+        assert not mi[lo:-1].any() and not mo[lo:-1].any()
+        assert not dh[lo:-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aggregation_kernels_on_a_graph_without_edges(dev, dtype):
+    c = _row_case(54, 200, 0, 66, dev, dtype, kind="pad_only")
+    mi, mo, dh, dw, out = _check_agg(c, dtype)
+    assert not mi.any() and not mo.any() and not dh.any() and not out.any()
+    assert dw.shape == (0,)
+
+
+def test_aggregation_kernels_repeat_bit_for_bit(dev):
+    """Two launches give the same bits: no atomics, fixed-order sums, the
+    recv row before the send row."""
+    for dtype in (torch.float32, torch.bfloat16):
+        c = _row_case(55, 500, 4096, 66, dev, dtype, kind="hub",
+                      order="shuffled")
+        a, b = _agg_runs(c)[0], _agg_runs(c)[0]
         for x, y in zip(a, b):
             assert torch.equal(x, y)

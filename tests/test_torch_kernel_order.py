@@ -1,12 +1,15 @@
 """The lane-group row kernels' launch arguments (``ops/cuda/spmm.py``:
 ``RowLaunch``, ``row_launch``) and their summation order, on the CPU.
 
-``sddmm`` and ``gather_pair_bwd`` (``csrc/spmm_ops.cu``, ``csrc/spmm_bwd.cu``,
-``csrc/rows.cuh``) run only on the card (``tests/test_torch_cuda.py``).
-Here a numpy emulation of their f32 summation order for a call's launch
-arguments (lane groups, edges in flight, the groups' fixed-order combine)
-is held against the JAX package's ``sddmm`` and ``gather_pair`` VJP,
-interpreted as ``tests/test_torch_ops.py`` and
+``sddmm``, ``gather_pair_bwd``, ``aggregate_pair`` and
+``aggregate_pair_bwd`` (``csrc/spmm_ops.cu``, ``csrc/spmm_bwd.cu``,
+``csrc/spmm.cu``, ``csrc/rows.cuh``) run only on the card
+(``tests/test_torch_cuda.py``).  Here a numpy emulation of their f32
+summation order for a call's launch arguments (lane groups, items a lane,
+the groups' fixed-order combine, long segments' blocks in warp order) is
+held against the JAX package's ``sddmm``, ``aggregate_pair`` and the
+``gather_pair`` and ``aggregate_pair`` VJPs, interpreted as
+``tests/test_torch_ops.py``, ``tests/test_torch_spmm.py`` and
 ``tests/test_torch_spmm_grad.py`` run them."""
 
 import jax
@@ -20,7 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gnn_fpga_tpu.ops.pallas import spmm as jsp
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
 
-SDDMM_TOL = dict(rtol=1e-4, atol=1e-5)
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
 VJP_TOL = dict(rtol=2e-3, atol=1e-5)
 
 KINDS = ["padded", "degree_zero", "dense", "hub"]
@@ -46,10 +49,10 @@ def _topology(seed, kind, v=72, e=192):
     return s.astype(np.int32), r.astype(np.int32), v
 
 
-def _launches(width):
+def _launches(width, lane_elems=None):
     """The launch arguments a call of this width takes in either dtype,
     from aligned tables and from tables off 16-byte alignment."""
-    return sorted({tsp.row_launch(width, dt, align)
+    return sorted({tsp.row_launch(width, dt, align, lane_elems)
                    for dt in (torch.float32, torch.bfloat16)
                    for align in (16, 4, 2) if align >= dt.itemsize},
                   key=lambda la: (la.item_bytes, la.log_lanes))
@@ -76,26 +79,30 @@ def _butterfly(parts, step=1):
 # Emulations of the kernels' f32 arithmetic
 # ---------------------------------------------------------------------------
 
-def emulate_sddmm(a, b, plan, la: tsp.RowLaunch, elem):
-    """``sddmm_kernel``: per edge, lane c of its group sums a[n] * b[o]
-    over its items c, c + lanes, ... in order, element by element; the
-    group's lanes are then added by xor shuffles (offsets lanes / 2, ...,
-    1); the result goes to the edge's slot ``order[j]``."""
-    seg, oth = _np(plan.sorted_seg), _np(plan.sorted_oth)
-    width = a.shape[1]
+def _items(t, la: tsp.RowLaunch, elem):
+    """Rows ``t`` [E, width] as a launch's lanes hold them: [E, kI, lanes,
+    per], item c = i * lanes + lane, zero past the row."""
     per = la.item_bytes // elem
     lanes = 1 << la.log_lanes
-    row = width // per
+    row = t.shape[1] // per
     k_i = -(-row // lanes)
-    # [E, kI, lanes, per]: item c = i * lanes + lane, zero past the row
-    pad = lambda t: np.pad(t.reshape(len(t), row, per),
-                           ((0, 0), (0, k_i * lanes - row), (0, 0))
-                           ).reshape(len(t), k_i, lanes, per)
-    ar, br = pad(a[seg]), pad(b[oth])
-    part = np.zeros((len(seg), lanes), np.float32)
+    return np.pad(t.reshape(len(t), row, per),
+                  ((0, 0), (0, k_i * lanes - row), (0, 0))
+                  ).reshape(len(t), k_i, lanes, per)
+
+
+def _lane_dots(pairs, la: tsp.RowLaunch, elem):
+    """Per edge, the group's dot product of each (x, y) pair of [E, width]
+    row tables: lane c adds x * y of its items c, c + lanes, ... in order,
+    element by element, the pairs' products in turn; the group's lanes
+    are then added by xor shuffles (offsets lanes / 2, ..., 1)."""
+    held = [(_items(x, la, elem), _items(y, la, elem)) for x, y in pairs]
+    n_e, k_i, lanes, per = held[0][0].shape
+    part = np.zeros((n_e, lanes), np.float32)
     for i in range(k_i):
         for q in range(per):
-            part = part + ar[:, i, :, q] * br[:, i, :, q]
+            for x, y in held:
+                part = part + x[:, i, :, q] * y[:, i, :, q]
     # xor offsets lanes / 2 down to 1: the same pairs as 1 up to lanes / 2
     # in another order of rounds, so add them in the kernel's order
     off = lanes // 2
@@ -103,37 +110,86 @@ def emulate_sddmm(a, b, plan, la: tsp.RowLaunch, elem):
     while off:
         part = part + part[:, idx ^ off]
         off //= 2
+    return part[:, 0]
+
+
+def _segment_rows(terms, ptr, long_nodes, la: tsp.RowLaunch):
+    """Each node's sum of its sorted positions' rows ``terms`` [E, width]
+    as ``rows.cuh`` adds them: one warp walks the segment in chunks of 32
+    edges, or for a node of ``long_nodes`` warp w of a block of 8 its
+    chunks w, w + 8, ...; a chunk's edge k goes to group k % G (G = 32 /
+    lanes groups a warp), each group sums its edges in order, a warp's
+    groups are added by xor shuffles (group offsets 1, 2, ..., G / 2) and
+    a block's warps' rows then in warp order."""
+    groups = 32 // (1 << la.log_lanes)
+    v = len(ptr) - 1
+    res = np.zeros((v, terms.shape[1]), np.float32)
+    for n in range(v):
+        warps = 8 if n in long_nodes else 1
+        acc = np.zeros((warps, groups, terms.shape[1]), np.float32)
+        for k, j in enumerate(range(ptr[n], ptr[n + 1])):
+            acc[(k // 32) % warps, k % groups] += terms[j]
+        rows = _butterfly(acc)[:, 0]
+        res[n] = rows[0]
+        for w in range(1, warps):
+            res[n] += rows[w]
+    return res
+
+
+def emulate_sddmm(a, b, plan, la: tsp.RowLaunch, elem):
+    """``sddmm_kernel``: per edge, the group's dot product of a[n] and
+    b[o] (:func:`_lane_dots`), written to the edge's slot ``order[j]``."""
+    seg, oth = _np(plan.sorted_seg), _np(plan.sorted_oth)
     out = np.zeros(len(seg), np.float32)
-    out[_np(plan.order)] = part[:, 0]
+    out[_np(plan.order)] = _lane_dots([(a[seg], b[oth])], la, elem)
     return out
 
 
 def emulate_gather_bwd(g, plans, la: tsp.RowLaunch):
-    """``gather_bwd_kernel``: per node and direction, one warp walks the
-    segment in chunks of 32 edges, or for a long segment (``long_seg``)
-    warp w of a block of 8 its chunks w, w + 8, ...; a chunk's edge k goes
-    to group k % G (G = 32 / lanes groups a warp),
-    each group sums its edges' rows of g in edge order, and a warp's
-    groups are added by xor shuffles (group offsets 1, 2, ..., G / 2); a
-    block's warps' rows are then added in warp order: ``(dpa, dpb)``."""
-    groups = 32 // (1 << la.log_lanes)
-    out = []
-    for plan in (plans.send, plans.recv):
-        ptr, order = _np(plan.seg_ptr), _np(plan.order)
-        long_seg = set(_np(plan.long_seg))
-        v = len(ptr) - 1
-        res = np.zeros((v, g.shape[1]), np.float32)
-        for n in range(v):
-            warps = 8 if n in long_seg else 1
-            acc = np.zeros((warps, groups, g.shape[1]), np.float32)
-            for k, j in enumerate(range(ptr[n], ptr[n + 1])):
-                acc[(k // 32) % warps, k % groups] += g[order[j]]
-            rows = _butterfly(acc)[:, 0]
-            res[n] = rows[0]
-            for w in range(1, warps):
-                res[n] += rows[w]
-        out.append(res)
-    return tuple(out)
+    """``segment_rows_kernel`` unweighted: each plan's segments sum their
+    edges' rows of g (:func:`_segment_rows`), long segments by a block:
+    ``(dpa, dpb)``."""
+    return tuple(_segment_rows(g[_np(p.order)], _np(p.seg_ptr),
+                               set(_np(p.long_seg)), la)
+                 for p in (plans.send, plans.recv))
+
+
+def emulate_aggregate_pair(h, w, plans, la: tsp.RowLaunch):
+    """``segment_rows_kernel`` weighted: each plan's segments sum w[e] *
+    h[o] (the product rounded, then added) over their edges:
+    ``(mi, mo)``."""
+    return tuple(_segment_rows(w[_np(p.order), None] * h[_np(p.sorted_oth)],
+                               _np(p.seg_ptr), set(_np(p.long_seg)), la)
+                 for p in (plans.recv, plans.send))
+
+
+def emulate_aggregate_pair_bwd(h, w, g_mi, g_mo, plans, la: tsp.RowLaunch,
+                               elem):
+    """``agg_bwd_kernel``: node n's recv walk sums w g_mo[o], its send
+    walk w g_mi[o] (:func:`_segment_rows`; a node with a long segment
+    either way has a block, whose 8 warps take both walks), and dh[n] is
+    the recv row plus the send row; each recv edge's dw is the group's
+    dot product of (g_mi[n], h[o]) and (g_mo[o], h[n]) (:func:`_lane_dots`)
+    in its EDGE-order slot."""
+    r, s = plans.recv, plans.send
+    long_nodes = set(_np(r.long_seg)) | set(_np(s.long_seg))
+    dh = (_segment_rows(w[_np(r.order), None] * g_mo[_np(r.sorted_oth)],
+                        _np(r.seg_ptr), long_nodes, la)
+          + _segment_rows(w[_np(s.order), None] * g_mi[_np(s.sorted_oth)],
+                          _np(s.seg_ptr), long_nodes, la))
+    n, o = _np(r.sorted_seg), _np(r.sorted_oth)
+    dw = np.zeros(len(n), np.float32)
+    dw[_np(r.order)] = _lane_dots([(g_mi[n], h[o]), (g_mo[o], h[n])], la,
+                                  elem)
+    return dh, dw
+
+
+def _emulated_launches(width, lane_elems=None):
+    """(launch, element bytes) for every launch a call of this width
+    takes in f32 (4) or bf16 (2)."""
+    return [(la, elem) for la in _launches(width, lane_elems)
+            for elem in (4, 2)
+            if la.item_bytes >= elem and not width * elem % la.item_bytes]
 
 
 # ---------------------------------------------------------------------------
@@ -152,13 +208,10 @@ def test_emulated_sddmm_matches_jax(kind, width):
         want = np.asarray(jsp.sddmm(jnp.asarray(a), jnp.asarray(b),
                                     plans_j.recv))
     plan = tsp.build_agg_plans(s, r, v).recv
-    for la in _launches(width):
-        for elem in (4, 2):
-            if la.item_bytes < elem or width * elem % la.item_bytes:
-                continue
-            np.testing.assert_allclose(
-                emulate_sddmm(a, b, plan, la, elem), want, **SDDMM_TOL,
-                err_msg=f"{la}, {elem}-byte elements")
+    for la, elem in _emulated_launches(width):
+        np.testing.assert_allclose(
+            emulate_sddmm(a, b, plan, la, elem), want, **F32_TOL,
+            err_msg=f"{la}, {elem}-byte elements")
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -185,6 +238,49 @@ def test_emulated_gather_pair_bwd_matches_jax_vjp(kind, width):
             assert not got[0][v // 2:].any() and not got[1][v // 2:].any()
 
 
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_aggregate_pair_matches_jax(kind, width):
+    s, r, v = _topology(6, kind)
+    rng = np.random.default_rng(7)
+    h = rng.standard_normal((v, width)).astype(np.float32)
+    w = rng.random(len(s)).astype(np.float32)
+    plans_j = jsp.build_agg_plans(s, r, v, tile_e=32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jsp.aggregate_pair(jnp.asarray(h), jnp.asarray(w), plans_j)
+    plans = tsp.build_agg_plans(s, r, v)
+    for la in _launches(width):
+        got = emulate_aggregate_pair(h, w, plans, la)
+        for name, x, y in zip(("mi", "mo"), got, want):
+            np.testing.assert_allclose(x, np.asarray(y), **F32_TOL,
+                                       err_msg=f"{name}, {la}")
+        if kind == "degree_zero":       # nodes without edges: zero rows
+            assert not got[0][v // 2:].any() and not got[1][v // 2:].any()
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_aggregate_pair_bwd_matches_jax_vjp(kind, width):
+    s, r, v = _topology(8, kind)
+    rng = np.random.default_rng(9)
+    h, g_mi, g_mo = (rng.standard_normal((v, width)).astype(np.float32)
+                     for _ in range(3))
+    w = rng.random(len(s)).astype(np.float32)
+    plans_j = jsp.build_agg_plans(s, r, v, tile_e=32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x, y: jsp.aggregate_pair(x, y, plans_j),
+                         jnp.asarray(h), jnp.asarray(w))
+        want = vjp((jnp.asarray(g_mi), jnp.asarray(g_mo)))
+    plans = tsp.build_agg_plans(s, r, v)
+    for la, elem in _emulated_launches(width, tsp.AGG_BWD_LANE_ELEMS):
+        got = emulate_aggregate_pair_bwd(h, w, g_mi, g_mo, plans, la, elem)
+        for name, x, y in zip(("dh", "dw"), got, want):
+            np.testing.assert_allclose(x, np.asarray(y), **VJP_TOL,
+                                       err_msg=f"{name}, {la}, {elem}")
+        if kind == "degree_zero":
+            assert not got[0][v // 2:].any()
+
+
 def test_emulated_kernels_on_a_graph_without_edges():
     """No edges: zero rows and no edge values, as the plain versions."""
     plans = tsp.build_agg_plans(np.zeros(0, np.int32), np.zeros(0, np.int32),
@@ -195,6 +291,11 @@ def test_emulated_kernels_on_a_graph_without_edges():
     assert not dpa.any() and not dpb.any()
     a = np.ones((5, 12), np.float32)
     assert emulate_sddmm(a, a, plans.recv, la, 4).shape == (0,)
+    w = np.zeros(0, np.float32)
+    mi, mo = emulate_aggregate_pair(a, w, plans, la)
+    dh, dw = emulate_aggregate_pair_bwd(a, w, a, a, plans, la, 4)
+    assert not mi.any() and not mo.any() and not dh.any()
+    assert mi.shape == dh.shape == (5, 12) and dw.shape == (0,)
 
 
 # ---------------------------------------------------------------------------
@@ -216,34 +317,58 @@ def test_row_launch_at_the_fullevent_widths():
     # a table off 16-byte alignment takes the narrow items
     assert tsp.row_launch(64, bf16, align=2) == tsp.RowLaunch(2, 3)
     assert tsp.row_launch(64, f32, align=4).item_bytes == 4
+    # aggregate_pair_bwd: D = 66 as one-element items, 5 a lane on 16
+    # lanes; rows of at most 32 items and D = 67 as for the other kernels
+    k = tsp.AGG_BWD_LANE_ELEMS
+    assert tsp.row_launch(66, bf16, lane_elems=k) == tsp.RowLaunch(2, 4)
+    assert tsp.row_launch(66, f32, lane_elems=k) == tsp.RowLaunch(4, 4)
+    for width, dt in ((64, bf16), (64, f32), (67, bf16), (12, f32)):
+        assert tsp.row_launch(width, dt, lane_elems=k) == \
+            tsp.row_launch(width, dt)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_row_launch_fits_every_width(dtype):
-    """For widths 1-256 and every alignment: the widest item (at most 16
-    bytes) that divides the row and the alignment, at most 32 lanes and at
-    most 8 items a lane (csrc/rows.cuh checks these); the fewest lanes
-    that hold a row one item a lane where 32 do, else 8 items a lane."""
+@pytest.mark.parametrize("lane_elems", [None, tsp.AGG_BWD_LANE_ELEMS])
+def test_row_launch_fits_every_width(dtype, lane_elems):
+    """For widths 1-256 and every alignment: at most 32 lanes and at most
+    8 items a lane (csrc/rows.cuh checks these), items that divide the row
+    and the alignment.  The widest item (at most 16 bytes) and the fewest
+    lanes that hold a row one item a lane where 32 do, else 8 items a
+    lane; with ``lane_elems``, a row of more than 32 items that would put
+    more elements than that on a lane goes to one-element items on the
+    fewest lanes that hold at most ``lane_elems`` each (32 at most)."""
     elem = dtype.itemsize
     for width in range(1, 257):
         for align in (16, 8, 4, 2):
             if align < elem:
                 continue
-            la = tsp.row_launch(width, dtype, align)
+            la = tsp.row_launch(width, dtype, align, lane_elems)
             item = la.item_bytes
             assert item in (2, 4, 8, 16) and item >= elem
             assert width * elem % item == 0 and align % item == 0
-            if item < 16:
-                assert width * elem % (2 * item) or align % (2 * item)
-            n_items = width * elem // item
             assert 0 <= la.log_lanes <= 5
             lanes = 1 << la.log_lanes
+            n_items = width * elem // item
             assert -(-n_items // lanes) <= 8
+            plain = tsp.row_launch(width, dtype, align)
+            if la != plain:
+                p_items = width * elem // plain.item_bytes
+                p_lane = -(-p_items // (1 << plain.log_lanes))
+                assert lane_elems and p_items > 32
+                assert p_lane * plain.item_bytes // elem > lane_elems
+                assert item == elem
+                assert lanes == 32 or -(-width // lanes) <= lane_elems
+                assert lanes == 1 or -(-width // (lanes // 2)) > lane_elems
+                continue
+            if item < 16:
+                assert width * elem % (2 * item) or align % (2 * item)
             if n_items <= 32:
                 assert lanes >= n_items
                 assert lanes == 1 or lanes // 2 < n_items
             else:
                 assert -(-n_items // (lanes // 2)) > 8
+                if lane_elems and lanes < 32:
+                    assert -(-n_items // lanes) * item // elem <= lane_elems
 
 
 @pytest.mark.parametrize("kind", KINDS)
