@@ -21,11 +21,12 @@ it:
    and its operations over the f32 rate) and, where one PyTorch call
    computes the same function, that call's time; then the fused
    iteration's two kernels on the fullevent and the hit graph, and the
-   lane-group row kernels (gather_pair_bwd, sddmm, aggregate_pair and
-   aggregate_pair_bwd) on the fullevent graph, each with and without its
-   pad edges: checked, two launches equal bit for bit, and timed
-   (gather_pair_bwd's two directions also alone, and aggregate_pair with
-   its weights read in sorted order beside the sorted copy's cost);
+   lane-group row kernels (gather_pair_bwd, sddmm, sddmm_dual on four
+   distinct tables, aggregate_pair, aggregate_pair_bwd and spmm) on the
+   fullevent graph, each with and without its pad edges: checked, two
+   launches equal bit for bit, and timed (gather_pair_bwd's two directions
+   also alone, aggregate_pair with its weights read in sorted order beside
+   the sorted copy's cost, and the kernels at D = 64);
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
@@ -107,7 +108,7 @@ KERNELS = {
                            "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
     "aggregate_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:806"),
     "gather_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
-    "spmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
+    "spmm": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
     "sddmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:496"),
     "sddmm_dual": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:563"),
     "sorted_segment_sum": ("ops",
@@ -352,6 +353,9 @@ def library_calls(g, t, w, seg, n_kept) -> dict:
                   torch.zeros(N_EDGE, dtype=dt, device=dev),
                   (N_NODE, N_NODE))
     h_t = t["h"].t().contiguous()
+    # sddmm_dual(g_mi, h, g_mo, h): <[g_mi, h][seg], [h, g_mo][oth]>
+    pv = torch.cat([t["g_mi"], t["h"]], 1)
+    qu_t = torch.cat([t["h"], t["g_mo"]], 1).t().contiguous()
     stacked = torch.cat([t["pa"], t["pb"]])
     pair_ids = torch.stack([g.senders.long(), g.receivers.long() + N_NODE], 1)
     lengths = seg.ptr.diff().long()
@@ -362,6 +366,8 @@ def library_calls(g, t, w, seg, n_kept) -> dict:
         "gather_pair_bwd": lambda: torch.sparse.mm(inc, t["g"]),
         "sddmm": lambda: torch.sparse.sampled_addmm(pattern, t["g_mi"], h_t,
                                                     beta=0.0),
+        "sddmm_dual": lambda: torch.sparse.sampled_addmm(pattern, pv, qu_t,
+                                                         beta=0.0),
         "gather_pair": lambda: F.embedding_bag(pair_ids, stacked,
                                                mode="sum"),
         "sorted_segment_sum": lambda: torch.segment_reduce(
@@ -609,18 +615,22 @@ def phase_iteration(g_full) -> None:
 
 
 def phase_rows(g_full) -> None:
-    """The lane-group row kernels, gather_pair_bwd, sddmm, aggregate_pair
-    and aggregate_pair_bwd, in f32 and bf16 on the fullevent graph with
-    and without its pad edges (the pad node's 160-edge segments, walked by
-    blocks of their own): against their plain versions, two launches bit
-    for bit, and timed; gather_pair_bwd's two halves, each timed alone by
+    """The lane-group row kernels, gather_pair_bwd, sddmm, sddmm_dual,
+    aggregate_pair, aggregate_pair_bwd and spmm, in f32 and bf16 on the
+    fullevent graph with and without its pad edges (the pad node's
+    160-edge segments, walked by blocks of their own): against their plain
+    versions, two launches bit for bit, and timed; sddmm_dual on four
+    distinct tables, so that no row it gathers was read as another table's
+    (the kernels phase times it as the aggregation backward calls it, h
+    as q and v); gather_pair_bwd's two halves, each timed alone by
     emptying the other direction's plan (whose rows are then written as
     zeros); and, timing only, aggregate_pair with its weights read in
     sorted order (each plan's order replaced by the identity, which a
     sorted copy of the weights would allow) beside the cost of making
     that copy (sort_edge_weights for both plans), aggregate_pair_bwd on
-    the forward's row layout (spmm.AGG_BWD_LANE_ELEMS off), and both
-    kernels at D = 64, whose rows are whole 16-byte items."""
+    the forward's row layout (spmm.AGG_BWD_LANE_ELEMS off), and the
+    aggregation kernels, spmm and sddmm_dual at D = 64, whose rows are
+    whole 16-byte items."""
     from gnn_fpga_tpu_torch.ops.cuda import spmm
 
     dev = g_full.x.device
@@ -644,7 +654,7 @@ def phase_rows(g_full) -> None:
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt).replace("torch.", "")
         rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dt)
-        a, b, u = rnd(N_NODE, d), rnd(N_NODE, d), rnd(N_NODE, d)
+        a, b, u, z = (rnd(N_NODE, d) for _ in range(4))
         tol, f32_tol = KERNEL_TOL[dt], KERNEL_TOL[torch.float32]
         for pad, g in (("pad", g_full), ("no pad", without_pad_edges(g_full))):
             grad, plans = rnd(g.n_edge, hdim), g.plans
@@ -667,6 +677,13 @@ def phase_rows(g_full) -> None:
                     lambda: spmm.aggregate_pair_bwd_reference(
                         a, w, b, u, s, r, N_NODE),
                     (tol, f32_tol)),
+                "spmm": (lambda: (spmm.spmm_raw(a, w, plans.recv),),
+                         lambda: (spmm.spmm_reference(a, w, r, s, N_NODE),),
+                         (tol,)),
+                "sddmm_dual": (
+                    lambda: (spmm.sddmm_dual(a, b, u, z, plans.recv),),
+                    lambda: (spmm.sddmm_dual_reference(a, b, u, z, r, s),),
+                    (f32_tol,)),
             }
             if pad == "pad":
                 recv_only, send_only = (emptied(plans, "send"),
@@ -696,7 +713,8 @@ def phase_rows(g_full) -> None:
             if pad == "pad":
                 # timing only: weights read in sorted order give other sums
                 sorted_plans = in_sorted_order(plans)
-                a64, b64, u64 = (t[:, :64].contiguous() for t in (a, b, u))
+                a64, b64, u64, z64 = (t[:, :64].contiguous()
+                                      for t in (a, b, u, z))
 
                 def bwd_on_forward_layout():
                     kept = spmm.AGG_BWD_LANE_ELEMS
@@ -721,6 +739,11 @@ def phase_rows(g_full) -> None:
                     "aggregate_pair_bwd at D = 64":
                         lambda: spmm.aggregate_pair_bwd(a64, w, b64, u64,
                                                         plans),
+                    "spmm at D = 64":
+                        lambda: spmm.spmm_raw(a64, w, plans.recv),
+                    "sddmm_dual at D = 64":
+                        lambda: spmm.sddmm_dual(a64, b64, u64, z64,
+                                                plans.recv),
                 }
                 ts = {k: [] for k in times}
                 for _ in range(2):          # in turns: a, b, c, a, b, c

@@ -97,17 +97,8 @@ __device__ __forceinline__ Vec<T, N> pack(const float (&src)[N]) {
   return r;
 }
 
-// One row of `width` columns in registers: lane l holds columns l, l+32, ...
-template <int kC, typename T>
-__device__ __forceinline__ void load_row(float (&dst)[kC], const T* row,
-                                         int width, int lane) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int k = c * kWarp + lane;
-    dst[c] = k < width ? to_f32(row[k]) : 0.f;
-  }
-}
-
+// Stores one row of `width` columns from registers, lane l holding columns
+// l, l+32, ...
 template <int kC, typename T>
 __device__ __forceinline__ void store_row(T* row, const float (&src)[kC],
                                           int width, int lane) {

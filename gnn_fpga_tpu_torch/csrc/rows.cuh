@@ -1,6 +1,6 @@
-// Rows read by lane groups, one edge a group: the layout of sddmm
-// (spmm_ops.cu), gather_pair_bwd and aggregate_pair_bwd (spmm_bwd.cu) and
-// aggregate_pair (spmm.cu).
+// Rows read by lane groups, one edge a group: the layout of sddmm and
+// sddmm_dual (spmm_ops.cu), gather_pair_bwd and aggregate_pair_bwd
+// (spmm_bwd.cu), aggregate_pair and spmm (spmm.cu).
 //
 // The kernels give one warp a node's CSR segment and take its edges in
 // chunks of up to 32, whose ids one coalesced load brings.  A segment of
@@ -161,17 +161,19 @@ __device__ __forceinline__ float warp_order_sum(
 // Each (node, direction)'s sum of the rows its segment reaches, written
 // once to its row of out_recv (the recv plan's segments) or out_send:
 // aggregate_pair (kWeighted: h's rows at the other endpoints times the
-// edge weights) and gather_pair_bwd (g's rows in edge order, unweighted).
-// Blocks [0, n_recv_long) walk the recv plan's long segments, the next
-// n_send_long the send plan's; the warps of the blocks after them own one
-// (node, direction) each, a node's two side by side, so that a row both
-// read (an edge's row of g) is found in L2 the second time.  Each group
-// sums its edges in order in f32 registers; the groups' rows are added in
-// a fixed order (sum_groups) before the one store, and a long segment's
-// warps' rows then in warp order.
+// edge weights), spmm (the same over one plan: sides = 1, `send` and
+// out_send unused) and gather_pair_bwd (g's rows in edge order,
+// unweighted).  Blocks [0, n_recv_long) walk the recv plan's long
+// segments, the next n_send_long the send plan's; the warps of the blocks
+// after them own one (node, direction) each, warp gw node gw / sides in
+// direction gw % sides: with two sides a node's two side by side, so that
+// a row both read (an edge's row of g) is found in L2 the second time.
+// Each group sums its edges in order in f32 registers; the groups' rows
+// are added in a fixed order (sum_groups) before the one store, and a long
+// segment's warps' rows then in warp order.
 template <typename T, int N, int kI, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-segment_rows_kernel(int n_node, int row, int log_lanes,
+segment_rows_kernel(int n_node, int sides, int row, int log_lanes,
                     const Vec<T, N>* __restrict__ tab,
                     const float* __restrict__ w, Side recv, Side send,
                     const int32_t* __restrict__ recv_long, int n_recv_long,
@@ -187,9 +189,9 @@ segment_rows_kernel(int n_node, int row, int log_lanes,
   if (whole) {
     const long gw =
         static_cast<long>(blockIdx.x - n_long) * kWarpsPerBlock + warp;
-    if (gw >= 2L * n_node) return;
-    by_send = gw & 1;
-    n = gw >> 1;
+    if (gw >= static_cast<long>(sides) * n_node) return;
+    by_send = sides == 2 && (gw & 1);
+    n = sides == 2 ? gw >> 1 : gw;
   } else {
     by_send = static_cast<int>(blockIdx.x) >= n_recv_long;
     n = by_send ? send_long[blockIdx.x - n_recv_long] : recv_long[blockIdx.x];
@@ -290,7 +292,9 @@ int dispatch_rows(int dtype, int n_node, const RowItems& ri,
 }
 
 // Launches segment_rows_kernel<..., kWeighted> over `tab` (the rows of
-// ri, checked with the outputs) with the two plans' long-segment lists.
+// ri, checked with the outputs) with the two plans' long-segment lists;
+// with out_send null, over the recv plan alone (one side: spmm, which
+// passes no send plan and n_send_long = 0).
 template <bool kWeighted>
 int launch_segment_rows(int dtype, int n_node, const RowItems& ri,
                         const void* tab, const float* w, Side recv,
@@ -298,8 +302,9 @@ int launch_segment_rows(int dtype, int n_node, const RowItems& ri,
                         const int32_t* send_long, int n_send_long,
                         void* out_recv, void* out_send, void* stream) {
   const void* rows[] = {tab, out_recv, out_send};
-  const unsigned blocks =
-      n_recv_long + n_send_long + blocks_for_warps(2L * n_node);
+  const int sides = out_send == nullptr ? 1 : 2;
+  const unsigned blocks = n_recv_long + n_send_long +
+                          blocks_for_warps(static_cast<long>(sides) * n_node);
   return dispatch_rows(
       dtype, n_node, ri, rows, 3, n_recv_long, n_send_long, [&](auto v) {
         using R = decltype(v);
@@ -307,7 +312,7 @@ int launch_segment_rows(int dtype, int n_node, const RowItems& ri,
         if (blocks > 0)
           segment_rows_kernel<typename R::type, R::n, R::items, kWeighted>
               <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                  n_node, ri.row(), ri.log_lanes,
+                  n_node, sides, ri.row(), ri.log_lanes,
                   static_cast<const Item*>(tab), w, recv, send, recv_long,
                   n_recv_long, send_long, n_send_long,
                   static_cast<Item*>(out_recv), static_cast<Item*>(out_send));

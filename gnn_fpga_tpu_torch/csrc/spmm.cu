@@ -1,18 +1,20 @@
 // Hand-written Hopper kernel for the SegmentClassifier's edge-weighted
 // neighbour aggregations with the weights given (the unfused iteration's
-// aggregate_pair):
+// aggregate_pair), and for the op API's single-direction spmm, the same
+// sum over one plan:
 //
-//     mi[n] = sum_{e: recv[e]==n} w[e] * h[send[e]]
-//     mo[n] = sum_{e: send[e]==n} w[e] * h[recv[e]]
+//     mi[n]  = sum_{e: recv[e]==n} w[e] * h[send[e]]
+//     mo[n]  = sum_{e: send[e]==n} w[e] * h[recv[e]]
+//     out[n] = sum_{e: seg[e]==n}  w[e] * h[oth[e]]          (spmm)
 //
-// The fused iteration, which scores the edges itself, is iteration_fwd.cu;
-// the single-direction spmm is spmm_ops.cu.
+// The fused iteration, which scores the edges itself, is iteration_fwd.cu.
 //
 // Replaces: gnn_fpga_tpu/ops/pallas/spmm.py::_agg_pair_kernel (and its
-// prebuilt-one-hot twin _agg_pair_kernel_pre).  The TPU kernel turns every
-// gather into a windowed one-hot matmul because Mosaic lacks a large
-// dynamic row gather; on Hopper a row gather is native, so the kernel
-// reads rows directly and keeps only the sorted edge orders.
+// prebuilt-one-hot twin _agg_pair_kernel_pre), and ::_spmm_kernel (reached
+// from spmm).  The TPU kernels turn every gather into a windowed one-hot
+// matmul because Mosaic lacks a large dynamic row gather; on Hopper a row
+// gather is native, so the kernel reads rows directly and keeps only the
+// sorted edge orders.
 //
 // Design: rows.cuh's segment_rows_kernel, weighted.  Edges come in two CSR
 // orders (the recv-sorted and send-sorted plans of ops/cuda/spmm.py); one
@@ -39,7 +41,12 @@
 // f32, the same with and without the pad edges, against 0.036 and 0.033
 // for the first design (a warp a node and direction, one element a lane,
 // one edge in flight); at D = 64, whose rows are one 16-byte item on each
-// of 8 lanes, the same kernel takes 0.016 ms.
+// of 8 lanes, the same kernel takes 0.016 ms.  spmm runs it with one side:
+// a warp a node of the one plan, the plan's long segments on blocks of
+// their own, half the grid of aggregate_pair: 0.013 ms in bf16 and 0.012
+// ms in f32, the same with and without the pad edges, against 0.018 and
+// 0.018 for its first design (a warp a node, one element a lane, one edge
+// in flight, the pad node's segment on one warp).
 //
 // Types: T is float or __nv_bfloat16 for the tables; edge weights are f32;
 // accumulation is f32; outputs are written in T.
@@ -70,6 +77,19 @@ int gnn_aggregate_pair_fwd(int dtype, int n_node, int d, int item_bytes,
       dtype, n_node, ri, h, w, gnn::Side{recv_ptr, recv_oth, recv_order},
       gnn::Side{send_ptr, send_oth, send_order}, recv_long, n_recv_long,
       send_long, n_send_long, mi, mo, stream);
+}
+
+// spmm over one plan: h, out: [n_node, d] in dtype; w, item_bytes,
+// log_lanes as above; the plan's CSR offsets, other endpoints, edge order
+// and long segments.
+int gnn_spmm(int dtype, int n_node, int d, int item_bytes, int log_lanes,
+             const void* h, const float* w, const int32_t* seg_ptr,
+             const int32_t* oth, const int32_t* order,
+             const int32_t* long_seg, int n_long, void* out, void* stream) {
+  const gnn::RowItems ri{d, dtype == 0 ? 4 : 2, item_bytes, log_lanes};
+  return gnn::launch_segment_rows<true>(
+      dtype, n_node, ri, h, w, gnn::Side{seg_ptr, oth, order}, gnn::Side{},
+      long_seg, n_long, nullptr, 0, out, nullptr, stream);
 }
 
 }  // extern "C"

@@ -40,9 +40,9 @@ _SIGNATURES = {
     "gnn_gather_pair_bwd": ([_I] * 5 + [_P] + ([_P] * 3 + [_I]) * 2
                             + [_P] * 3, _I),
     "gnn_gather_pair_fwd": ([_I] * 4 + [_P] * 6, _I),
-    "gnn_spmm": ([_I] * 3 + [_P] * 7, _I),
+    "gnn_spmm": ([_I] * 5 + [_P] * 6 + [_I] + [_P] * 2, _I),
     "gnn_sddmm": ([_I] * 5 + [_P] * 6 + [_I] + [_P] * 2, _I),
-    "gnn_sddmm_dual": ([_I] * 3 + [_P] * 9, _I),
+    "gnn_sddmm_dual": ([_I] * 5 + [_P] * 8 + [_I] + [_P] * 2, _I),
     "gnn_sorted_segment_sum": ([_I] * 3 + [_P] * 2 + [_I] + [_P] * 2, _I),
 }
 

@@ -25,18 +25,20 @@ Each is a ``torch.autograd.Function`` whose backward is a kernel too:
 save only the V-sized inputs and recompute per-edge values, as the JAX
 package's VJPs do.
 
-The single-direction API runs on ``csrc/spmm_ops.cu``: :func:`spmm_raw`
-(one direction of the aggregation over one plan), :func:`spmm` (with its
-VJP, ``dh`` through the transpose plan and ``dw`` through :func:`sddmm`),
-:func:`sddmm` (``out[e] = <a[seg], b[oth]>``) and :func:`sddmm_dual`.
+The single-direction API: :func:`spmm_raw` (one direction of the
+aggregation over one plan, on ``csrc/spmm.cu``'s kernel), :func:`spmm`
+(with its VJP, ``dh`` through the transpose plan and ``dw`` through
+:func:`sddmm`), and on ``csrc/spmm_ops.cu`` :func:`sddmm` (``out[e] =
+<a[seg], b[oth]>``) and :func:`sddmm_dual`.
 
 The plans keep the JAX package's receiver-sorted and sender-sorted edge
 orders, from a stable argsort, and add CSR row pointers, so each node's
 row is reduced by one warp without atomics; the fused iteration's kernels
 walk work items of at most :data:`ITEM_EDGES` edges instead
 (:class:`IterItems`), and the lane-group row kernels (:func:`aggregate_pair`
-and its backward, :func:`gather_pair_bwd`, :func:`sddmm`) give each
-segment of more than :data:`LONG_SEGMENT` edges a block of warps
+and its backward, :func:`gather_pair_bwd`, :func:`spmm_raw`,
+:func:`sddmm` and :func:`sddmm_dual`) give each segment of more than
+:data:`LONG_SEGMENT` edges a block of warps
 (``EdgePlan.long_seg``), so that no long segment sets a tail.  The TPU's
 gather windows, prebuilt one-hots and tile padding are not needed: Hopper
 gathers rows natively.
@@ -355,8 +357,8 @@ AGG_BWD_LANE_ELEMS = 5
 @dataclasses.dataclass(frozen=True)
 class RowLaunch:
     """How the kernels of ``csrc/rows.cuh`` (:func:`aggregate_pair` and
-    :func:`aggregate_pair_bwd`, :func:`gather_pair_bwd`, :func:`sddmm`)
-    read one call's rows: as items of
+    :func:`aggregate_pair_bwd`, :func:`gather_pair_bwd`, :func:`spmm_raw`,
+    :func:`sddmm` and :func:`sddmm_dual`) read one call's rows: as items of
     ``item_bytes`` (16, 8, 4 or, in bf16, 2 bytes), in groups of ``2 **
     log_lanes`` lanes, one edge a group, lane ``c`` holding items ``c, c +
     lanes, ...`` (at most 8)."""
@@ -847,9 +849,10 @@ def gather_pair_bwd(g, plans: AggPlans):
 
 def spmm_raw(h, w, plan: EdgePlan):
     """``out[n] = sum_{e: seg[e]==n} w[e] * h[oth[e]]`` in one kernel
-    launch, no VJP attached.  ``h``: [V, D]; ``w``: [E] edge weights in
-    EDGE order (read through the plan's ``order``).  Returns [V, D] in
-    ``h.dtype``."""
+    launch, no VJP attached: :func:`aggregate_pair`'s forward kernel over
+    one plan.  ``h``: [V, D]; ``w``: [E] edge weights in EDGE order (read
+    through the plan's ``order``).  Returns [V, D] in ``h.dtype``, each
+    element rounded once from its f32 sum."""
     w = w.float()
     dev = _kernel_device(h, "spmm")
     if dev is None:
@@ -863,9 +866,11 @@ def spmm_raw(h, w, plan: EdgePlan):
     _check_cuda(dev, torch.float32, w=w)
     _check_plan("spmm", plan, dev, v)
     out = torch.empty_like(h)
+    la = row_launch(d, h.dtype, _alignment(h, out))
     code = _lib().gnn_spmm(
-        _DTYPE_CODES[h.dtype], v, d, _ptr(h), _ptr(w), _ptr(plan.seg_ptr),
-        _ptr(plan.sorted_oth), _ptr(plan.order), _ptr(out), _stream(h))
+        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
+        _ptr(w), _ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order),
+        _ptr(plan.long_seg), len(plan.long_seg), _ptr(out), _stream(h))
     _raise_on_error(code, "gnn_spmm")
     spmm.launches += 1
     return out
@@ -889,17 +894,12 @@ def _sddmm(name, plan: EdgePlan, a, b, u=None, v=None):
     _check_cuda(dev, a.dtype, **tabs)
     _check_plan(name, plan, dev, n)
     out = torch.empty(plan.n_edge, dtype=torch.float32, device=dev)
-    ids = (_ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order))
-    if u is None:
-        la = row_launch(d, a.dtype, _alignment(a, b))
-        code = _lib().gnn_sddmm(_DTYPE_CODES[a.dtype], n, d, la.item_bytes,
-                                la.log_lanes, _ptr(a), _ptr(b), *ids,
-                                _ptr(plan.long_seg), len(plan.long_seg),
-                                _ptr(out), _stream(a))
-    else:
-        code = _lib().gnn_sddmm_dual(_DTYPE_CODES[a.dtype], n, d, _ptr(a),
-                                     _ptr(b), _ptr(u), _ptr(v), *ids,
-                                     _ptr(out), _stream(a))
+    la = row_launch(d, a.dtype, _alignment(*tabs.values()))
+    code = getattr(_lib(), f"gnn_{name}")(
+        _DTYPE_CODES[a.dtype], n, d, la.item_bytes, la.log_lanes,
+        *map(_ptr, tabs.values()), _ptr(plan.seg_ptr), _ptr(plan.sorted_oth),
+        _ptr(plan.order), _ptr(plan.long_seg), len(plan.long_seg),
+        _ptr(out), _stream(a))
     _raise_on_error(code, f"gnn_{name}")
     wrapper.launches += 1
     return out
@@ -914,9 +914,12 @@ def sddmm(a, b, plan: EdgePlan):
 
 def sddmm_dual(p, q, u, v, plan: EdgePlan):
     """``out[e] = <p[seg[e]], q[oth[e]]> + <u[oth[e]], v[seg[e]]>`` in one
-    kernel launch: with the recv plan, ``sddmm_dual(g_mi, h, g_mo, h,
-    recv)`` is the ``dw`` of :func:`aggregate_pair`.  Four [V, D] tables;
-    returns [E] f32 in EDGE order."""
+    kernel launch, :func:`sddmm`'s kernel with a second pair of tables,
+    each lane adding the two products element by element as
+    :func:`aggregate_pair_bwd` sums ``dw``: with the recv plan,
+    ``sddmm_dual(g_mi, h, g_mo, h, recv)`` is the ``dw`` of
+    :func:`aggregate_pair`.  Four [V, D] tables; returns [E] f32 in EDGE
+    order."""
     return _sddmm("sddmm_dual", plan, p, q, u, v)
 
 

@@ -544,8 +544,9 @@ def test_spmm_vjp_matches_plain_autograd(dev, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The lane-group row kernels: gather_pair_bwd (csrc/spmm_bwd.cu) and sddmm
-# (csrc/spmm_ops.cu), rows read as in csrc/rows.cuh
+# The lane-group row kernels: gather_pair_bwd (csrc/spmm_bwd.cu), spmm
+# (csrc/spmm.cu), sddmm and sddmm_dual (csrc/spmm_ops.cu), rows read as in
+# csrc/rows.cuh
 # ---------------------------------------------------------------------------
 
 ROW_WIDTHS = [1, 12, 40, 64, 66, 67, 256]
@@ -592,24 +593,32 @@ def _row_case(seed, v, e, width, dev, dtype, kind="random", order="recv",
 
 
 def _row_runs(c):
-    """(kernel, plain) outputs of gather_pair_bwd (dpa, dpb), sddmm and
-    sddmm_dual, with the launches each wrapper counted.  gather_pair_bwd's
-    plain sums are taken in f64: the hub's 1,120-term sums cancel, and in
-    f32 the plain version's atomics on the card differ from one run to
-    the next by more than TOL there."""
+    """(kernel, plain) outputs of gather_pair_bwd (dpa, dpb), spmm over
+    the recv plan (h = a, edge weights in [0, 1)), sddmm and sddmm_dual
+    (four distinct tables), with the launches each wrapper counted.
+    gather_pair_bwd's and spmm's plain sums are taken in f64: the hub's
+    1,120-term sums cancel, and in f32 the plain version's atomics on the
+    card differ from one run to the next by more than TOL there."""
     p = c["plans"]
+    rng = np.random.default_rng(len(c["s"]))
+    w = torch.from_numpy(rng.random(len(c["s"])).astype(np.float32)).to(
+        c["a"].device)
     n0 = tsp.launch_counts()
     got = (tsp.gather_pair_bwd(c["g"], p)
-           + (tsp.sddmm(c["a"], c["b"], p.recv),
+           + (tsp.spmm_raw(c["a"], w, p.recv),
+              tsp.sddmm(c["a"], c["b"], p.recv),
               tsp.sddmm_dual(c["a"], c["b"], c["u"], c["w"], p.recv)))
     torch.cuda.synchronize()
     n1 = tsp.launch_counts()
     assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
-        "gather_pair_bwd": 1, "sddmm": 1, "sddmm_dual": 1}
-    g64 = c["g"].double()
+        "gather_pair_bwd": 1, "spmm": 1, "sddmm": 1, "sddmm_dual": 1}
+    g64, a64 = c["g"].double(), c["a"].double()
+    spmm64 = segment_sum(a64[c["s"].long()] * w.double()[:, None],
+                         c["r"].long(), c["v"])
     want = (tuple(segment_sum(g64, ids, c["v"]).float()
                   for ids in (c["s"], c["r"]))
-            + (tsp.sddmm_reference(c["a"], c["b"], c["r"], c["s"]),
+            + (spmm64.float(),
+               tsp.sddmm_reference(c["a"], c["b"], c["r"], c["s"]),
                tsp.sddmm_dual_reference(c["a"], c["b"], c["u"], c["w"],
                                         c["r"], c["s"])))
     return got, want
@@ -618,10 +627,10 @@ def _row_runs(c):
 def _check_rows(c, dtype):
     got, want = _row_runs(c)
     v, width = c["v"], c["g"].shape[1]
-    for x, y in zip(got[:2], want[:2]):               # [V, width] in T
+    for x, y in zip(got[:3], want[:3]):               # [V, width] in T
         assert x.dtype == dtype and x.shape == (v, width)
         torch.testing.assert_close(x.float(), y, **TOL[dtype])
-    for x, y in zip(got[2:], want[2:]):               # [E] f32 from T
+    for x, y in zip(got[3:], want[3:]):               # [E] f32 from T
         assert x.dtype == torch.float32 and x.shape == (len(c["s"]),)
         torch.testing.assert_close(x, y, **TOL[torch.float32])
     return got
@@ -637,25 +646,29 @@ def test_row_kernels_match_plain_versions(dev, dtype, width, order, offset):
     shuffled; nodes without edges get zero rows."""
     c = _row_case(50, 300, 2048, width, dev, dtype, order=order,
                   offset=offset)
-    la = tsp.row_launch(width, dtype, tsp._alignment(c["g"], c["a"], c["b"]))
+    la = tsp.row_launch(width, dtype, tsp._alignment(
+        c["g"], c["a"], c["b"], c["u"], c["w"]))
     if offset == "element":
         assert la.item_bytes == dtype.itemsize
-    dpa, dpb = _check_rows(c, dtype)[:2]
+    dpa, dpb, out = _check_rows(c, dtype)[:3]
     lo = c["v"] * 3 // 4
     assert not dpa[lo:-1].any() and not dpb[lo:-1].any()
+    assert not out[lo:-1].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["hub", "pad_only", "no_edges"])
+@pytest.mark.parametrize("kind", ["hub", "pad_only", "no_edges", "dense"])
 def test_row_kernels_on_odd_graphs(dev, dtype, kind):
     """A node that receives 1,120 edges from one node (35 chunks of 32 in
-    either direction), a graph of pad edges only, a graph without
-    edges."""
+    either direction), a graph of pad edges only, a graph without edges,
+    and ~43 edges a node each way on 24 nodes (long segments
+    everywhere)."""
     c = _row_case(51, 200, 0 if kind == "no_edges" else 1024, 66, dev,
                   dtype, kind="pad_only" if kind == "no_edges" else kind)
-    dpa, dpb = _check_rows(c, dtype)[:2]
-    if kind != "hub":
+    dpa, dpb, out = _check_rows(c, dtype)[:3]
+    if kind in ("pad_only", "no_edges"):
         assert not dpa[:-1].any() and not dpb[:-1].any()
+        assert not out[:-1].any()
 
 
 def test_row_kernels_repeat_bit_for_bit(dev):
@@ -671,8 +684,8 @@ def test_row_kernels_repeat_bit_for_bit(dev):
 
 # ---------------------------------------------------------------------------
 # The aggregation kernels: aggregate_pair (csrc/spmm.cu) and its backward
-# (csrc/spmm_bwd.cu), rows read as in csrc/rows.cuh; spmm (csrc/spmm_ops.cu)
-# on the same graphs
+# (csrc/spmm_bwd.cu), rows read as in csrc/rows.cuh; spmm (the forward's
+# kernel over one plan) on the same graphs
 # ---------------------------------------------------------------------------
 
 def _agg_runs(c):

@@ -1,16 +1,17 @@
 """The lane-group row kernels' launch arguments (``ops/cuda/spmm.py``:
 ``RowLaunch``, ``row_launch``) and their summation order, on the CPU.
 
-``sddmm``, ``gather_pair_bwd``, ``aggregate_pair`` and
-``aggregate_pair_bwd`` (``csrc/spmm_ops.cu``, ``csrc/spmm_bwd.cu``,
-``csrc/spmm.cu``, ``csrc/rows.cuh``) run only on the card
-(``tests/test_torch_cuda.py``).  Here a numpy emulation of their f32
+``sddmm``, ``sddmm_dual``, ``gather_pair_bwd``, ``aggregate_pair``,
+``aggregate_pair_bwd`` and ``spmm`` (``csrc/spmm_ops.cu``,
+``csrc/spmm_bwd.cu``, ``csrc/spmm.cu``, ``csrc/rows.cuh``) run only on the
+card (``tests/test_torch_cuda.py``).  Here a numpy emulation of their f32
 summation order for a call's launch arguments (lane groups, items a lane,
 the groups' fixed-order combine, long segments' blocks in warp order) is
-held against the JAX package's ``sddmm``, ``aggregate_pair`` and the
-``gather_pair`` and ``aggregate_pair`` VJPs, interpreted as
-``tests/test_torch_ops.py``, ``tests/test_torch_spmm.py`` and
-``tests/test_torch_spmm_grad.py`` run them."""
+held against the JAX package's ``sddmm``, ``sddmm_dual``,
+``aggregate_pair``, ``spmm`` and the ``gather_pair``, ``aggregate_pair``
+and ``spmm`` VJPs, interpreted as ``tests/test_torch_ops.py``,
+``tests/test_torch_spmm.py`` and ``tests/test_torch_spmm_grad.py`` run
+them."""
 
 import jax
 import jax.numpy as jnp
@@ -139,10 +140,26 @@ def _segment_rows(terms, ptr, long_nodes, la: tsp.RowLaunch):
 def emulate_sddmm(a, b, plan, la: tsp.RowLaunch, elem):
     """``sddmm_kernel``: per edge, the group's dot product of a[n] and
     b[o] (:func:`_lane_dots`), written to the edge's slot ``order[j]``."""
+    return emulate_sddmm_dual(a, b, None, None, plan, la, elem)
+
+
+def emulate_sddmm_dual(p, q, u, v, plan, la: tsp.RowLaunch, elem):
+    """``sddmm_kernel`` with its second pair of tables (none when ``u`` is
+    None): per edge, the group's sum of the products of (p[n], q[o]) and
+    (u[o], v[n]), element by element in that order (:func:`_lane_dots`),
+    written to the edge's slot ``order[j]``."""
     seg, oth = _np(plan.sorted_seg), _np(plan.sorted_oth)
+    pairs = [(p[seg], q[oth])] + ([] if u is None else [(u[oth], v[seg])])
     out = np.zeros(len(seg), np.float32)
-    out[_np(plan.order)] = _lane_dots([(a[seg], b[oth])], la, elem)
+    out[_np(plan.order)] = _lane_dots(pairs, la, elem)
     return out
+
+
+def emulate_spmm(h, w, plan, la: tsp.RowLaunch):
+    """``segment_rows_kernel`` weighted over one plan: each segment sums
+    w[e] * h[o] over its edges (:func:`_segment_rows`)."""
+    return _segment_rows(w[_np(plan.order), None] * h[_np(plan.sorted_oth)],
+                         _np(plan.seg_ptr), set(_np(plan.long_seg)), la)
 
 
 def emulate_gather_bwd(g, plans, la: tsp.RowLaunch):
@@ -158,9 +175,7 @@ def emulate_aggregate_pair(h, w, plans, la: tsp.RowLaunch):
     """``segment_rows_kernel`` weighted: each plan's segments sum w[e] *
     h[o] (the product rounded, then added) over their edges:
     ``(mi, mo)``."""
-    return tuple(_segment_rows(w[_np(p.order), None] * h[_np(p.sorted_oth)],
-                               _np(p.seg_ptr), set(_np(p.long_seg)), la)
-                 for p in (plans.recv, plans.send))
+    return tuple(emulate_spmm(h, w, p, la) for p in (plans.recv, plans.send))
 
 
 def emulate_aggregate_pair_bwd(h, w, g_mi, g_mo, plans, la: tsp.RowLaunch,
@@ -281,6 +296,68 @@ def test_emulated_aggregate_pair_bwd_matches_jax_vjp(kind, width):
             assert not got[0][v // 2:].any()
 
 
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_sddmm_dual_matches_jax(kind, width):
+    s, r, v = _topology(10, kind)
+    rng = np.random.default_rng(11)
+    tabs = [rng.standard_normal((v, width)).astype(np.float32)
+            for _ in range(4)]
+    plans_j = jsp.build_agg_plans(s, r, v, tile_e=32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jsp.sddmm_dual(*map(jnp.asarray, tabs),
+                                         plans_j.recv))
+    plan = tsp.build_agg_plans(s, r, v).recv
+    for la, elem in _emulated_launches(width):
+        np.testing.assert_allclose(
+            emulate_sddmm_dual(*tabs, plan, la, elem), want, **F32_TOL,
+            err_msg=f"{la}, {elem}-byte elements")
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_spmm_matches_jax(kind, width):
+    s, r, v = _topology(12, kind)
+    rng = np.random.default_rng(13)
+    h = rng.standard_normal((v, width)).astype(np.float32)
+    w = rng.random(len(s)).astype(np.float32)
+    plans_j = jsp.build_agg_plans(s, r, v, tile_e=32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jsp.spmm(jnp.asarray(h), jnp.asarray(w),
+                                   plans_j.recv, plans_j.send))
+    plan = tsp.build_agg_plans(s, r, v).recv
+    for la in _launches(width):
+        got = emulate_spmm(h, w, plan, la)
+        np.testing.assert_allclose(got, want, **F32_TOL, err_msg=f"{la}")
+        if kind == "degree_zero":       # nodes without edges: zero rows
+            assert not got[v // 2:].any()
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_spmm_vjp_matches_jax_vjp(kind, width):
+    """``spmm``'s VJP on the card: ``dh`` is ``spmm_raw`` over the
+    transpose plan, ``dw`` is ``sddmm`` over the plan."""
+    s, r, v = _topology(14, kind)
+    rng = np.random.default_rng(15)
+    h, g = (rng.standard_normal((v, width)).astype(np.float32)
+            for _ in range(2))
+    w = rng.random(len(s)).astype(np.float32)
+    plans_j = jsp.build_agg_plans(s, r, v, tile_e=32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda x, y: jsp.spmm(x, y, plans_j.recv, plans_j.send),
+            jnp.asarray(h), jnp.asarray(w))
+        want = vjp(jnp.asarray(g))
+    plans = tsp.build_agg_plans(s, r, v)
+    for la, elem in _emulated_launches(width):
+        got = (emulate_spmm(g, w, plans.send, la),
+               emulate_sddmm(g, h, plans.recv, la, elem))
+        for name, x, y in zip(("dh", "dw"), got, want):
+            np.testing.assert_allclose(x, np.asarray(y), **VJP_TOL,
+                                       err_msg=f"{name}, {la}, {elem}")
+
+
 def test_emulated_kernels_on_a_graph_without_edges():
     """No edges: zero rows and no edge values, as the plain versions."""
     plans = tsp.build_agg_plans(np.zeros(0, np.int32), np.zeros(0, np.int32),
@@ -296,6 +373,9 @@ def test_emulated_kernels_on_a_graph_without_edges():
     dh, dw = emulate_aggregate_pair_bwd(a, w, a, a, plans, la, 4)
     assert not mi.any() and not mo.any() and not dh.any()
     assert mi.shape == dh.shape == (5, 12) and dw.shape == (0,)
+    out = emulate_spmm(a, w, plans.recv, la)
+    assert out.shape == (5, 12) and not out.any()
+    assert emulate_sddmm_dual(a, a, a, a, plans.recv, la, 4).shape == (0,)
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +467,40 @@ def test_plans_list_their_long_segments(kind):
                                                                  ([], []))
     assert (plans.recv.long_seg.tolist(), plans.send.long_seg.tolist()) \
         == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_launch_for_tables_of_mixed_alignment(dtype):
+    """sddmm_dual's four tables at base addresses of different alignment
+    (as allocated, a row in, one element in, two elements in): the launch
+    takes the items the least aligned table allows, and the emulated
+    kernel on that launch still computes the function."""
+    v, width = 40, 66
+    rng = np.random.default_rng(16)
+    big = torch.from_numpy(
+        rng.standard_normal(((v + 1) * width + 2,)).astype(np.float32)
+    ).to(dtype)
+    tabs = (big[:v * width].view(v, width),
+            big[width:(v + 1) * width].view(v, width),
+            big[1:v * width + 1].view(v, width),
+            big[2:v * width + 2].view(v, width))
+    aligns = [tsp._alignment(t) for t in tabs]
+    assert len(set(aligns)) > 1
+    align = tsp._alignment(*tabs)
+    assert align == min(aligns) == dtype.itemsize
+    la = tsp.row_launch(width, dtype, align)
+    assert la == min((tsp.row_launch(width, dtype, a) for a in aligns),
+                     key=lambda x: x.item_bytes)
+    assert la.item_bytes == dtype.itemsize
+    s, r, v = _topology(17, "padded", v=v, e=160)
+    plan = tsp.build_agg_plans(s, r, v).recv
+    p, q, u, w = (t.float().numpy() for t in tabs)
+    want = tsp.sddmm_dual_reference(
+        *(torch.from_numpy(t) for t in (p, q, u, w)),
+        plan.sorted_seg.long(), plan.sorted_oth.long())
+    np.testing.assert_allclose(
+        emulate_sddmm_dual(p, q, u, w, plan, la, dtype.itemsize),
+        want.index_select(0, plan.inv_order.long()).numpy(), **F32_TOL)
 
 
 def test_alignment_of_table_views():
