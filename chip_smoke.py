@@ -20,13 +20,15 @@ it:
    events), its bound (the larger of its bytes over the card's memory rate
    and its operations over the f32 rate) and, where one PyTorch call
    computes the same function, that call's time; then the fused
-   iteration's two kernels on the fullevent and the hit graph, and the
+   iteration's two kernels on the fullevent and the hit graph, the
    lane-group row kernels (gather_pair_bwd, sddmm, sddmm_dual on four
-   distinct tables, aggregate_pair, aggregate_pair_bwd and spmm) on the
-   fullevent graph, each with and without its pad edges: checked, two
-   launches equal bit for bit, and timed (gather_pair_bwd's two directions
-   also alone, aggregate_pair with its weights read in sorted order beside
-   the sorted copy's cost, and the kernels at D = 64);
+   distinct tables, aggregate_pair, aggregate_pair_bwd and spmm) and the
+   stream kernels (sorted_segment_sum, gather_pair) on the fullevent
+   graph, each with and without its pad edges: checked, two launches
+   equal bit for bit, and timed (gather_pair_bwd's two directions also
+   alone, aggregate_pair with its weights read in sorted order beside the
+   sorted copy's cost, the kernels at D = 64, the segment sum on a
+   1,120-row hub, on a view off 16-byte alignment and with other tiles);
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
@@ -63,7 +65,11 @@ It prints a JSON line of per-kernel results and ends with one JSON line
 ``{"ok": true, "device": {...}}`` when every phase passed; any failure
 exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
 three fused requests, three fused training steps, one blocked training
-step and three NodeClassifier training steps to PATH.
+step and three NodeClassifier training steps to PATH.  ``--phase NAME``
+(kernels, iteration, rows or stream; repeatable) runs only those
+measurement phases, on the first packed graph, and prints no result line:
+copied into an older checkout, it measures that tree's kernels the same
+way.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
            "bwd": "gnn_fpga_tpu_torch/csrc/spmm_bwd.cu",
            "ops": "gnn_fpga_tpu_torch/csrc/spmm_ops.cu",
            "gather": "gnn_fpga_tpu_torch/csrc/gather.cu",
+           "segsum": "gnn_fpga_tpu_torch/csrc/segment_sum.cu",
            "iter_fwd": "gnn_fpga_tpu_torch/csrc/iteration_fwd.cu",
            "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
@@ -111,7 +118,7 @@ KERNELS = {
     "spmm": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
     "sddmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:496"),
     "sddmm_dual": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:563"),
-    "sorted_segment_sum": ("ops",
+    "sorted_segment_sum": ("segsum",
                            "gnn_fpga_tpu/ops/pallas/segment_sum.py:82"),
 }
 # Kernel outputs that are f32 from T-typed tables ([E] edge values): they
@@ -128,7 +135,8 @@ EXACT_KERNELS = ("gather_pair",)
 #      (half an ulp = 2^-8 relative at worst) -> twice that.
 KERNEL_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-4)}
 # The iteration backward's parameter sums (dw2, db1, db2) add one term per
-# edge over E = 180,736 edges, and the terms cancel: a reordered f32 sum
+# edge over E = 180,736 edges, and the terms cancel (as do the segment
+# sum's column sums over a 1,120-row hub): a reordered f32 sum
 # errs in proportion to the terms, not to the result, so their atol is
 # this factor times the largest entry of the plain result (rtol as above).
 PARAM_SUM_ATOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
@@ -261,6 +269,18 @@ def library_ms(fn) -> tuple:
         return time_ms(fn, graph=False)[1], "dispatched"
 
 
+def time_in_turns(label, fns) -> None:
+    """Times each of ``fns`` twice, in turns (a, b, c, a, b, c), and
+    prints the mean device time of each."""
+    ts = {k: [] for k in fns}
+    for _ in range(2):
+        for k, f in fns.items():
+            ts[k].append(time_ms(f))
+    for k, t in ts.items():
+        print(f"  {label} {k}: {device_ms(*t):.4f} ms "
+              f"({', '.join(fmt_ms(x) for x in t)})", flush=True)
+
+
 def compare(name, got, ref, rtol, atol) -> float:
     got, ref = got.float().reshape(ref.shape), ref.float()
     err = (got - ref).abs()
@@ -360,6 +380,7 @@ def library_calls(g, t, w, seg, n_kept) -> dict:
     pair_ids = torch.stack([g.senders.long(), g.receivers.long() + N_NODE], 1)
     lengths = seg.ptr.diff().long()
     kept = t["m_sorted"][:n_kept]
+    kept_ids = seg.sorted_ids[:n_kept].long()
     calls = {
         "aggregate_pair": lambda: torch.sparse.mm(adj_pair, t["h"]),
         "spmm": lambda: torch.sparse.mm(adj_recv, t["h"]),
@@ -370,7 +391,12 @@ def library_calls(g, t, w, seg, n_kept) -> dict:
                                                          beta=0.0),
         "gather_pair": lambda: F.embedding_bag(pair_ids, stacked,
                                                mode="sum"),
-        "sorted_segment_sum": lambda: torch.segment_reduce(
+        # one scatter of the kept rows into a zeroed table (atomics)
+        "sorted_segment_sum": lambda: torch.zeros(
+            (N_NODE, kept.shape[1]), dtype=dt, device=dev).index_add_(
+                0, kept_ids, kept),
+        # the same sum from the CSR lengths; it syncs with the host
+        "segment_reduce": lambda: torch.segment_reduce(
             kept, "sum", lengths=lengths),
     }
     out = {}
@@ -519,6 +545,11 @@ def phase_kernels(g) -> dict:
             out[(name, dt)].update(bound_ms=bound, bound_by=by,
                                    library_ms=lib_ms, timer="cuda_graph",
                                    library_timer=lib_timer)
+            if name == "sorted_segment_sum" and "segment_reduce" in libs:
+                red_ms, red_timer = library_ms(libs["segment_reduce"])
+                print(f"  {name} {tag}: segment_reduce {red_ms:.4f} ms "
+                      f"({red_timer})", flush=True)
+                out[(name, dt)].update(segment_reduce_ms=red_ms)
     return out
 
 
@@ -745,13 +776,116 @@ def phase_rows(g_full) -> None:
                         lambda: spmm.sddmm_dual(a64, b64, u64, z64,
                                                 plans.recv),
                 }
-                ts = {k: [] for k in times}
-                for _ in range(2):          # in turns: a, b, c, a, b, c
-                    for k, f in times.items():
-                        ts[k].append(time_ms(f))
-                for k, t in ts.items():
-                    print(f"  {k} {what}: {device_ms(*t):.4f} ms "
-                          f"({', '.join(fmt_ms(x) for x in t)})", flush=True)
+                time_in_turns(what, times)
+
+
+def phase_stream(g_full) -> None:
+    """The two kernels that stream a table through the card rather than
+    walk segments, sorted_segment_sum and gather_pair, in f32 and bf16 on
+    the fullevent graph with and without its pad edges: against their
+    plain versions, two launches bit for bit (gather_pair also bit for bit
+    against its plain version), one launch counted a call, and timed; the
+    segment sum also on a 1,120-row hub (node 0 takes the ids of the first
+    1,120 edges), at D = 64, under precision="default", and on a messages
+    view one row into its table (in bf16 at D = 66 its base is 4-byte but
+    not 16-byte aligned).  Timing only, where the tree has the tunable:
+    the segment sum's tile at 64, 128 and 256 rows."""
+    from gnn_fpga_tpu_torch.ops.cuda import segment_sum, spmm
+
+    dev = g_full.x.device
+    gen = torch.Generator().manual_seed(55)
+    d, hdim = HIDDEN + INPUT_DIM, HIDDEN
+    print("stream kernels, with and without the pad edges:", flush=True)
+
+    def check(name, what, kern, plain, counter, rtol_atol=None):
+        n0 = counter.launches
+        first, again = kern(), kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        if counter.launches != n0 + 2:
+            fail(f"{name} {what}: {counter.launches - n0} launches counted "
+                 f"for 2 calls")
+        if not torch.equal(first, again):
+            fail(f"{name} {what}: two launches differ")
+        if rtol_atol is None:
+            exact(f"{name} {what}", first, ref)
+        else:
+            compare(f"{name} {what}", first, ref, *rtol_atol)
+        k1, k2 = time_ms(kern), time_ms(kern)
+        print(f"  {name} {what}: kernel {device_ms(k1, k2):.4f} ms "
+              f"({fmt_ms(k1)}, {fmt_ms(k2)}); two launches bit for bit",
+              flush=True)
+
+    graphs = (("pad", g_full), ("no pad", without_pad_edges(g_full)))
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        for pad, g in graphs:
+            e = g.n_edge
+            ids, seg = segment_ids(g, gen)
+            hub = ids.clone()
+            hub[:1120] = 0
+            hub_seg = segment_sum.build_sorted_segments(hub, N_NODE).to(dev)
+            m = torch.randn(e + 1, d, generator=gen).to(dev, dt)
+            m_sorted = m[:e].index_select(0, seg.order.long())
+            view = torch.empty_like(m)
+            view[1:] = m_sorted
+            n_kept = int(seg.ptr[-1])
+            cases = {
+                "": (m_sorted, seg, m[:e], ids, "highest"),
+                ", 1,120-row hub": (m[:e].index_select(
+                    0, hub_seg.order.long()), hub_seg, m[:e], hub, "highest"),
+                ", precision=default": (m_sorted, seg, m[:e].bfloat16(), ids,
+                                        "default"),
+                ", view one row in": (view[1:], seg, m[:e], ids, "highest"),
+            }
+            for label, (msgs, sg, plain_m, plain_ids, prec) in cases.items():
+                what = (f"{tag} ({pad}, E={e}, {n_kept} kept rows, "
+                        f"D={d}{label})")
+                ref = segment_sum.segment_sum_reference(plain_m, plain_ids,
+                                                        N_NODE)
+                rtol, atol = KERNEL_TOL[dt]
+                if "hub" in label:  # 1,120-term sums: PARAM_SUM_ATOL's case
+                    atol = PARAM_SUM_ATOL[dt] * ref.abs().max().item()
+                check("sorted_segment_sum", what,
+                      lambda: segment_sum.sorted_segment_sum(msgs, sg, N_NODE,
+                                                             prec),
+                      lambda: ref, segment_sum.sorted_segment_sum,
+                      (rtol, atol))
+            bound, _ = bound_ms("sorted_segment_sum", dt, N_NODE, n_kept, d,
+                                hdim)
+            m64 = m_sorted[:, :64].contiguous()
+            fns = {"D = 64": lambda: segment_sum.sorted_segment_sum(
+                m64, seg, N_NODE)}
+            if hasattr(segment_sum, "SEGSUM_TILE_ROWS"):
+                def tile_of(rows):
+                    def run():
+                        kept = (segment_sum.SEGSUM_TILE_ROWS,
+                                segment_sum.SEGSUM_TILE_BYTES)
+                        segment_sum.SEGSUM_TILE_ROWS = rows
+                        segment_sum.SEGSUM_TILE_BYTES = rows * d * 4
+                        try:
+                            return segment_sum.sorted_segment_sum(
+                                m_sorted, seg, N_NODE)
+                        finally:
+                            (segment_sum.SEGSUM_TILE_ROWS,
+                             segment_sum.SEGSUM_TILE_BYTES) = kept
+                    return run
+                fns.update({f"tile of {r} rows": tile_of(r)
+                            for r in (64, 128, 256)})
+            bound64, _ = bound_ms("sorted_segment_sum", dt, N_NODE, n_kept,
+                                  64, hdim)
+            print(f"  sorted_segment_sum {tag} ({pad}): bound {bound:.4f} ms "
+                  f"at D = {d}, {bound64:.4f} at D = 64", flush=True)
+            time_in_turns(f"sorted_segment_sum {tag} ({pad})", fns)
+
+            pa, pb = (torch.randn(N_NODE, hdim, generator=gen).to(dev, dt)
+                      for _ in range(2))
+            s, r = g.senders, g.receivers
+            what = f"{tag} ({pad}, E={e}, H={hdim})"
+            check("gather_pair", what,
+                  lambda: spmm.gather_pair_fwd(pa, pb, s, r),
+                  lambda: spmm.gather_pair_reference(pa, pb, s, r),
+                  spmm.gather_pair)
 
 
 def segment_ids(g, gen):
@@ -760,7 +894,8 @@ def segment_ids(g, gen):
     from gnn_fpga_tpu_torch.ops.cuda import segment_sum
 
     ids = g.receivers.clone()
-    ids[(torch.rand(N_EDGE, generator=gen) < 0.01).to(ids.device)] = N_NODE
+    drop = torch.rand(len(ids), generator=gen) < 0.01
+    ids[drop.to(ids.device)] = N_NODE
     return ids, segment_sum.build_sorted_segments(ids, N_NODE).to(ids.device)
 
 
@@ -1392,16 +1527,30 @@ def write_profile(path, mode, what, run):
     profiled(run, (path, what))
 
 
+# The measurement phases, by name, that --phase runs alone.
+MEASUREMENTS = {"kernels": phase_kernels, "iteration": phase_iteration,
+                "rows": phase_rows, "stream": phase_stream}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="also write torch.profiler tables to PATH")
+    ap.add_argument("--phase", action="append", choices=tuple(MEASUREMENTS),
+                    help="run only this measurement phase on the first "
+                         "packed graph (repeatable): no main path and no "
+                         "result line")
     args = ap.parse_args()
     kind = phase_device()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if args.phase:
+        g = make_request(0, device)
+        for name in args.phase:
+            MEASUREMENTS[name](g)
+        return
     t0 = time.perf_counter()
     graphs = [make_request(seed, device) for seed in range(N_REQUESTS)]
     print(f"graphs: {N_REQUESTS} packed graphs built in "
@@ -1410,6 +1559,7 @@ def main():
     print_probe_bounds()
     phase_iteration(graphs[0])
     phase_rows(graphs[0])
+    phase_stream(graphs[0])
     paths = (phase_serving(device, graphs, args.profile),
              phase_training(device, graphs, args.profile),
              phase_ops(graphs[0]), phase_blocked(device, args.profile),

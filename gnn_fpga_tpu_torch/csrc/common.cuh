@@ -1,5 +1,6 @@
 // Helpers shared by the message-passing kernels (spmm.cu, spmm_bwd.cu,
-// spmm_ops.cu, gather.cu, iteration_fwd.cu, iteration_bwd.cu).
+// spmm_ops.cu, segment_sum.cu, gather.cu, iteration_fwd.cu,
+// iteration_bwd.cu).
 
 #pragma once
 
@@ -97,18 +98,6 @@ __device__ __forceinline__ Vec<T, N> pack(const float (&src)[N]) {
   return r;
 }
 
-// Stores one row of `width` columns from registers, lane l holding columns
-// l, l+32, ...
-template <int kC, typename T>
-__device__ __forceinline__ void store_row(T* row, const float (&src)[kC],
-                                          int width, int lane) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int k = c * kWarp + lane;
-    if (k < width) row[k] = from_f32<T>(src[c]);
-  }
-}
-
 // One CSR direction: segment offsets, the row each sorted edge reads (its
 // other endpoint's; for a table in edge order, gather_pair_bwd's g, the
 // edge's own: the plan's order), and where each sorted edge's weight or
@@ -126,35 +115,6 @@ inline bool aligned_to(const void* p, int bytes) {
 
 inline unsigned blocks_for_warps(long warps) {
   return static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
-// Host side: pick T from the dtype code and the register chunks per lane
-// kC = ceil(width / 32) in {1, 2, 3, 4, 8} from the widest row.
-template <typename T, int kC>
-struct Variant {
-  using type = T;
-  static constexpr int chunks = kC;
-};
-
-// Calls launch(Variant<T, kC>{}) for dtype (0 = float32, 1 = bfloat16) and
-// rows of up to `width` columns (at most 256).
-template <typename Launch>
-int dispatch(int dtype, int width, Launch launch) {
-  if (width < 0 || width > 8 * kWarp || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int c = (width + kWarp - 1) / kWarp;
-  if (dtype == 0) {
-    if (c <= 1) return launch(Variant<float, 1>{});
-    if (c == 2) return launch(Variant<float, 2>{});
-    if (c == 3) return launch(Variant<float, 3>{});
-    if (c == 4) return launch(Variant<float, 4>{});
-    return launch(Variant<float, 8>{});
-  }
-  if (c <= 1) return launch(Variant<__nv_bfloat16, 1>{});
-  if (c == 2) return launch(Variant<__nv_bfloat16, 2>{});
-  if (c == 3) return launch(Variant<__nv_bfloat16, 3>{});
-  if (c == 4) return launch(Variant<__nv_bfloat16, 4>{});
-  return launch(Variant<__nv_bfloat16, 8>{});
 }
 
 }  // namespace gnn

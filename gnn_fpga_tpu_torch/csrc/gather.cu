@@ -18,20 +18,29 @@
 //
 // Design.  A row is `row` items, an item being 16 bytes (8 bf16 or 4 f32)
 // when the row's bytes are a multiple of 16 and the three pointers are
-// 16-byte aligned, else one element.  Each edge has a group of L lanes, L
-// the power of two at or above `row`, at most 32; lane c of the group
-// covers items c, c + L, ... of the row, so a row's 16-byte pieces are
-// read by consecutive lanes (H = 64 bf16 is 8 lanes) and neighbouring
-// groups store neighbouring rows.  A thread takes kUnroll edges, a block's
-// worth of groups apart: it loads their ids once, then 2 * kUnroll items,
-// then stores kUnroll sums, so several 16-byte loads are in flight.  No
-// index is divided; edges and offsets are 64-bit.
+// 16-byte aligned, else one element (a misaligned view).  Each edge has a
+// group of L lanes, L the power of two at or above `row`, at most 32;
+// lane c of the group covers items c, c + L, ... of the row, so a row's
+// 16-byte pieces are read by consecutive lanes (H = 64: 8 lanes in bf16,
+// 16 in f32).  A warp takes the edges in chunks of 32: one coalesced load
+// brings the chunk's 32 senders and 32 receivers, and the groups take
+// their edges' ids from those lanes by shuffle, so no id is loaded twice.
+// Group g takes edges g, g + G, ... of the chunk (G = 32 / L groups a
+// warp), kEdgesInFlight at a time: it loads all their items before it
+// stores any, so 8 16-byte loads a lane are in flight, and neighbouring
+// groups store neighbouring rows.  The output is written with streaming
+// stores (st.global.cs): it is written once and never read back, and
+// evict-first stores keep the 46 MB (f32) stream from evicting the two
+// tables, which every edge gathers again, from the 50 MB L2.  Neither 2
+// nor 8 edges in flight, nor a persistent grid-stride grid, ran faster
+// (PERF.md, PR 9).  No index is divided; edges and offsets are 64-bit.
 //
 // What bounds it on this card: bytes.  At the fullevent shapes (E = 180,736,
-// H = 64, bf16) it writes 23 MB once and gathers 46 MB of rows from two
-// 2 MB tables that stay in the 50 MB L2, plus 1.4 MB of ids: the write to
-// device memory and the L2 gather bandwidth set the time.  Pad edges point
-// at a pad node and are gathered like any other; the caller masks them.
+// H = 64) it writes 23 MB (bf16) or 46 MB (f32) once and gathers twice
+// that of rows from two 2 or 4 MB tables that stay in L2, plus 1.4 MB of
+// ids: the write to device memory and the L2 gather bandwidth set the
+// time.  Pad edges point at a pad node and are gathered like any other;
+// the caller masks them.
 //
 // An id outside [0, V) stops the kernel at a device-side assert, as
 // PyTorch's own index_select does on the card: it never reads past a
@@ -47,11 +56,11 @@
 namespace {
 
 using gnn::from_f32;
+using gnn::kFull;
 using gnn::kThreads;
 using gnn::kWarp;
+using gnn::kWarpsPerBlock;
 using gnn::to_f32;
-
-constexpr int kUnroll = 4;
 
 // 16 bytes of a row: the unit of the vector path.
 template <typename T>
@@ -74,43 +83,73 @@ __device__ __forceinline__ Pack<T> add(const Pack<T>& a, const Pack<T>& b) {
   return r;
 }
 
+// Streaming (evict-first) stores of one item.
+__device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
+
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, __nv_bfloat16 v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(v));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_cs(Pack<T>* p, const Pack<T>& v) {
+  __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
+}
+
+constexpr int kEdgesInFlight = 4;   // a lane group's edges in flight
+
 // P is T (one element an item) or Pack<T> (16 bytes an item); `row` is the
-// number of items in a row; each edge has 2^log_lanes lanes.
+// number of items in a row; each edge has 2^log_lanes lanes; each warp
+// takes one chunk of 32 edges.
 template <typename P>
 __global__ void __launch_bounds__(kThreads)
 gather_pair_kernel(long n_edge, int n_node, int row, int log_lanes,
                    const P* __restrict__ pa, const P* __restrict__ pb,
                    const int32_t* __restrict__ send,
                    const int32_t* __restrict__ recv, P* __restrict__ out) {
+  constexpr int kU = kEdgesInFlight;
+  const int lane = threadIdx.x & (kWarp - 1);
   const int lanes = 1 << log_lanes;
-  const int lane = threadIdx.x & (lanes - 1);
-  const int groups = kThreads >> log_lanes;   // edges a block takes at once
-  const long e0 = static_cast<long>(blockIdx.x) * groups * kUnroll +
-                  (threadIdx.x >> log_lanes);
-  long src_a[kUnroll] = {}, src_b[kUnroll] = {};
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const long e = e0 + static_cast<long>(u) * groups;
-    if (e < n_edge) {
-      const int s = send[e], r = recv[e];
-      assert(0 <= s && s < n_node && 0 <= r && r < n_node);
-      src_a[u] = static_cast<long>(s) * row;
-      src_b[u] = static_cast<long>(r) * row;
-    }
+  const int c0 = lane & (lanes - 1);
+  const int group = lane >> log_lanes;
+  const int groups = kWarp >> log_lanes;
+  const long e0 = (static_cast<long>(blockIdx.x) * kWarpsPerBlock +
+                   threadIdx.x / kWarp) * kWarp;
+  if (e0 >= n_edge) return;
+  const int cnt = static_cast<int>(min(static_cast<long>(kWarp),
+                                       n_edge - e0));
+  int s_l = 0, r_l = 0;
+  if (lane < cnt) {
+    s_l = send[e0 + lane];
+    r_l = recv[e0 + lane];
+    assert(0 <= s_l && s_l < n_node && 0 <= r_l && r_l < n_node);
   }
-  for (int c = lane; c < row; c += lanes) {
-    P a[kUnroll], b[kUnroll];
+  for (int k0 = 0; k0 < cnt; k0 += groups * kU) {
+    const P* src_a[kU];
+    const P* src_b[kU];
+    bool mine[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (e0 + static_cast<long>(u) * groups < n_edge) {
-        a[u] = pa[src_a[u] + c];
-        b[u] = pb[src_b[u] + c];
-      }
+    for (int u = 0; u < kU; ++u) {
+      const int k = k0 + u * groups + group;
+      mine[u] = k < cnt;
+      src_a[u] = pa + static_cast<long>(__shfl_sync(kFull, s_l, k & 31)) *
+                          row;
+      src_b[u] = pb + static_cast<long>(__shfl_sync(kFull, r_l, k & 31)) *
+                          row;
     }
+    for (int c = c0; c < row; c += lanes) {
+      P a[kU], b[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long e = e0 + static_cast<long>(u) * groups;
-      if (e < n_edge) out[e * row + c] = add(a[u], b[u]);
+      for (int u = 0; u < kU; ++u) {
+        if (mine[u]) {
+          a[u] = src_a[u][c];
+          b[u] = src_b[u][c];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const long e = e0 + k0 + u * groups + group;
+        if (mine[u]) store_cs(out + e * row + c, add(a[u], b[u]));
+      }
     }
   }
 }
@@ -121,9 +160,9 @@ int launch(long n_edge, int n_node, int row, const void* pa, const void* pb,
            cudaStream_t stream) {
   int log_lanes = 0;
   while ((1 << log_lanes) < row && (1 << log_lanes) < kWarp) ++log_lanes;
-  const long per_block = static_cast<long>(kThreads >> log_lanes) * kUnroll;
-  // at most 2^31 / 32 blocks: within the grid's limit, so no stride loop
-  const long blocks = (n_edge + per_block - 1) / per_block;
+  // one chunk of 32 edges a warp: at most 2^31 / 256 blocks, within the
+  // grid's limit
+  const long blocks = (n_edge + kThreads - 1) / kThreads;
   if (blocks > 0 && row > 0)
     gather_pair_kernel<P><<<static_cast<unsigned>(blocks), kThreads, 0,
                             stream>>>(

@@ -1,30 +1,25 @@
 // Hand-written Hopper kernels for the single-direction sparse operations of
-// ops/cuda/spmm.py and ops/cuda/segment_sum.py:
+// ops/cuda/spmm.py:
 //
 //     sddmm:       out[e] = <a[seg(e)], b[oth(e)]>                     [E]
 //     sddmm_dual:  out[e] = <p[seg(e)], q[oth(e)]> + <u[oth(e)], v[seg(e)]>
-//     sorted segment sum:
-//                  out[n] = sum_{ids[e]==n} msgs[e], msgs already sorted
 //
 // (spmm, one direction of aggregate_pair's sum, is spmm.cu's kernel over
-// one plan.)
+// one plan; the sorted segment sum is segment_sum.cu's.)
 //
 // Design.  The edges come in a CSR plan sorted by their seg endpoint
-// (ops/cuda/spmm.py::EdgePlan, or the SortedSegments of
-// ops/cuda/segment_sum.py), and one warp owns one seg node: it walks the
-// node's contiguous segment and keeps the node's own rows or sums in f32
+// (ops/cuda/spmm.py::EdgePlan), and one warp owns one seg node: it walks
+// the node's contiguous segment and keeps the node's own rows in
 // registers.  The sddmms read rows as rows.cuh lays them out (a group of
 // lanes an edge, the widest item the row's alignment allows, segments of
-// more than kLongSegment edges on blocks of their own); the segment sum
-// keeps the first design, lane l holding columns l, l+32, ...
-// Every output row or element has one owner and is written once: no
-// atomics and no zero-fill, and results are identical from run to run.
-// The TPU kernels' windowed one-hot matmuls are not carried over: they
-// exist because Mosaic has no large row gather, and Hopper gathers rows
-// natively.
+// more than kLongSegment edges on blocks of their own).  Every output
+// element has one owner and is written once: no atomics and no zero-fill,
+// and results are identical from run to run.  The TPU kernels' windowed
+// one-hot matmuls are not carried over: they exist because Mosaic has no
+// large row gather, and Hopper gathers rows natively.
 //
-// Types: T = float or __nv_bfloat16 for the tables and messages;
-// accumulation is f32; the segment sum writes T, the sddmms write f32.
+// Types: T = float or __nv_bfloat16 for the tables; accumulation and the
+// outputs are f32.
 //
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError().
@@ -33,7 +28,6 @@
 
 namespace {
 
-using gnn::dispatch;
 using gnn::dispatch_rows;
 using gnn::group_sum;
 using gnn::kFull;
@@ -45,7 +39,6 @@ using gnn::load_row_items;
 using gnn::RowItems;
 using gnn::Lanes;
 using gnn::Side;
-using gnn::store_row;
 using gnn::to_f32;
 using gnn::Vec;
 using gnn::Walk;
@@ -217,44 +210,6 @@ int launch_sddmm(int dtype, int n_node, const RowItems& ri, const void* a,
   });
 }
 
-// Replaces: gnn_fpga_tpu/ops/pallas/segment_sum.py::_segment_sum_kernel.
-// The TPU kernel rank-compacts the sorted ids so that each edge tile is one
-// [T, T] one-hot matmul, and scatters the compact sums to node rows with
-// XLA afterwards.  Here the CSR offsets ptr[n] of the sorted ids give each
-// node its contiguous rows msgs[ptr[n] : ptr[n+1]], which one warp sums;
-// rows whose id is n_node lie past ptr[n_node] and are never read.
-// kRound rounds each f32 message to bf16 before it is summed, as the
-// one-pass bf16 MXU product of precision="default" does.
-//
-// What bounds it on this card: reading the messages once, E x D x
-// sizeof(T) bytes (24 MB in bf16 at E = 180,736, D = 66) in contiguous
-// rows, one add per element: device-memory bandwidth, with a tail set by
-// the longest segment.
-template <typename T, int kC, bool kRound>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(int n_node, int d, const T* __restrict__ msgs,
-                   const int32_t* __restrict__ ptr, T* __restrict__ out) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long n = static_cast<long>(blockIdx.x) * kWarpsPerBlock +
-                 (threadIdx.x / kWarp);
-  if (n >= n_node) return;
-  float acc[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-  for (long j = ptr[n]; j < ptr[n + 1]; ++j) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int k = c * kWarp + lane;
-      if (k < d) {
-        float m = to_f32(msgs[j * d + k]);
-        if (kRound) m = __bfloat162float(__float2bfloat16(m));
-        acc[c] += m;
-      }
-    }
-  }
-  store_row<kC>(out + n * d, acc, d, lane);
-}
-
 }  // namespace
 
 extern "C" {
@@ -285,30 +240,6 @@ int gnn_sddmm_dual(int dtype, int n_node, int d, int item_bytes,
   return launch_sddmm<true>(
       dtype, n_node, RowItems{d, dtype == 0 ? 4 : 2, item_bytes, log_lanes},
       p, q, u, v, Side{seg_ptr, oth, order}, long_seg, n_long, out, stream);
-}
-
-// msgs: [E, d] in the segments' sorted order; ptr: [n_node + 1] CSR
-// offsets; out: [n_node, d]; dtype as above for msgs and out.
-int gnn_sorted_segment_sum(int dtype, int n_node, int d, const void* msgs,
-                           const int32_t* ptr, int round_bf16, void* out,
-                           void* stream) {
-  const unsigned blocks = gnn::blocks_for_warps(n_node);
-  return dispatch(dtype, d, [&](auto var) {
-    using T = typename decltype(var)::type;
-    constexpr int kC = decltype(var)::chunks;
-    const auto st = static_cast<cudaStream_t>(stream);
-    const T* m = static_cast<const T*>(msgs);
-    T* o = static_cast<T*>(out);
-    if (blocks > 0) {
-      if (round_bf16)
-        segment_sum_kernel<T, kC, true><<<blocks, kThreads, 0, st>>>(
-            n_node, d, m, ptr, o);
-      else
-        segment_sum_kernel<T, kC, false><<<blocks, kThreads, 0, st>>>(
-            n_node, d, m, ptr, o);
-    }
-    return static_cast<int>(cudaGetLastError());
-  });
 }
 
 }  // extern "C"

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "gnn_spmm": ([_I] * 5 + [_P] * 6 + [_I] + [_P] * 2, _I),
     "gnn_sddmm": ([_I] * 5 + [_P] * 6 + [_I] + [_P] * 2, _I),
     "gnn_sddmm_dual": ([_I] * 5 + [_P] * 8 + [_I] + [_P] * 2, _I),
-    "gnn_sorted_segment_sum": ([_I] * 3 + [_P] * 2 + [_I] + [_P] * 2, _I),
+    "gnn_sorted_segment_sum": ([_I] * 6 + [_P] * 3 + [_I] + [_P] * 3, _I),
 }
 
 

@@ -768,3 +768,159 @@ def test_aggregation_kernels_repeat_bit_for_bit(dev):
         a, b = _agg_runs(c)[0], _agg_runs(c)[0]
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The sorted segment sum (csrc/segment_sum.cu): tiles of sorted rows staged
+# in shared memory, cut nodes finished by a second launch
+# ---------------------------------------------------------------------------
+
+SEG_KINDS = ["padded", "degree_zero", "dense", "hub", "boundaries", "all_pad",
+             "empty"]
+# Segment lengths whose ends fall on tile boundaries of 8, 32, 128 and
+# 256 rows, with empty nodes on boundaries
+# (tests/test_torch_segment_order.py).
+BOUNDARY_LENGTHS = [32, 16, 16, 64, 0, 0, 1, 31, 33, 31, 0, 32, 0, 256, 5,
+                    251, 512, 3]
+
+
+def _segment_ids(kind, seed, v=300, e=2048):
+    """Segment ids and node count: random ids on 3/4 of the nodes, 160 rows
+    on node v-1 and ~1% pad ids (``padded``); ids on half the nodes
+    (``degree_zero``); on 24 nodes (``dense``); random ids and 1,120 more
+    on node 0 (``hub``); the lengths of BOUNDARY_LENGTHS and 8 pad ids
+    (``boundaries``); pad ids only (``all_pad``); none (``empty``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "padded":
+        ids = rng.integers(0, v * 3 // 4, e)
+        ids[-160:] = v - 1
+        ids[rng.random(e) < 0.01] = v
+    elif kind == "degree_zero":
+        ids = rng.integers(0, v // 2, e)
+    elif kind == "dense":
+        ids = rng.integers(0, 24, e)
+    elif kind == "hub":
+        ids = np.concatenate([rng.integers(0, v, e), np.zeros(1120, int)])
+    elif kind == "boundaries":
+        v = len(BOUNDARY_LENGTHS) + 3
+        ids = np.concatenate([np.repeat(np.arange(len(BOUNDARY_LENGTHS)),
+                                        BOUNDARY_LENGTHS), np.full(8, v)])
+    elif kind == "all_pad":
+        ids = np.full(e, v)
+    else:
+        ids = np.zeros(0, int)
+    return rng.permutation(ids).astype(np.int32), v
+
+
+def _segment_case(kind, seed, width, dev, dtype, offset=0):
+    """ids, node count, sorted segments, messages in edge order and their
+    sorted copy; with ``offset`` the sorted copy is a view that many
+    elements into a larger buffer."""
+    ids, v = _segment_ids(kind, seed)
+    seg = tss.build_sorted_segments(ids, v).to(dev)
+    rng = np.random.default_rng(seed + 1)
+    m = torch.from_numpy(rng.standard_normal((len(ids), width)).astype(
+        np.float32)).to(dev, dtype)
+    buf = torch.zeros(len(ids) * width + offset, device=dev, dtype=dtype)
+    m_sorted = buf[offset:].view(len(ids), width)
+    m_sorted.copy_(m.index_select(0, seg.order.long()))
+    return dict(ids=torch.from_numpy(ids).to(dev), v=v, seg=seg, m=m,
+                m_sorted=m_sorted)
+
+
+def _check_segment_sum(c, dtype, precision="highest"):
+    """The kernel against the plain sum in f64 (of the bf16-rounded
+    messages under "default"), one launch counted; the hub's 1,120-term
+    sums cancel, so the atol takes PARAM_SUM_ATOL times the largest
+    sum."""
+    n0 = tss.sorted_segment_sum.launches
+    got = tss.sorted_segment_sum(c["m_sorted"], c["seg"], c["v"], precision)
+    torch.cuda.synchronize()
+    assert tss.sorted_segment_sum.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (c["v"], c["m"].shape[1])
+    m = c["m"].bfloat16() if precision == "default" else c["m"]
+    want = segment_sum(m.double(), c["ids"].long(), c["v"]).float()
+    atol = max(TOL[dtype]["atol"],
+               PARAM_SUM_ATOL[dtype] * want.abs().max().item())
+    torch.testing.assert_close(got.float(), want, rtol=TOL[dtype]["rtol"],
+                               atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("kind", SEG_KINDS)
+def test_segment_sum_matches_plain_version(dev, dtype, precision, kind):
+    c = _segment_case(kind, 60, 66, dev, dtype)
+    got = _check_segment_sum(c, dtype, precision)
+    counts = torch.bincount(c["ids"].long(), minlength=c["v"] + 1)[:c["v"]]
+    assert not got[counts == 0].any()      # nodes without rows: zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 12, 64, 66, 67, 256])
+@pytest.mark.parametrize("rows", [8, 32, None])
+def test_segment_sum_tiles_of_any_size(dev, dtype, width, rows,
+                                       monkeypatch):
+    """Tiles of 8 and 32 rows cut most segments (the second launch adds
+    the pieces) and of the wrapper's own size, at widths whose rows are
+    2 to 1,024 bytes, one or two columns a unit (67 is odd), on the
+    boundary-aligned and hub graphs."""
+    if rows is not None:
+        monkeypatch.setattr(tss, "SEGSUM_TILE_ROWS", rows)
+    for kind in ("boundaries", "hub"):
+        _check_segment_sum(_segment_case(kind, 61, width, dev, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", ["row", "3 rows", "element"])
+def test_segment_sum_on_a_view_off_16_byte_alignment(dev, dtype, offset):
+    """Messages one or three rows into their buffer (at D = 66 a bf16 base
+    on a 4-byte boundary, an f32 one on 8: two columns a unit) or one
+    element in (one column a unit); the kernel's own copies take them,
+    never the plain version."""
+    elems = {"row": 66, "3 rows": 3 * 66, "element": 1}[offset]
+    c = _segment_case("padded", 62, 66, dev, dtype, elems)
+    assert c["m_sorted"].data_ptr() % 16 != 0
+    la = tss.segment_launch(66, dtype, tsp._alignment(c["m_sorted"]))
+    assert la.unit == (1 if offset == "element" else 2)
+    _check_segment_sum(c, dtype)
+
+
+def test_segment_sum_repeats_bit_for_bit(dev):
+    """Two launches give the same bits: no atomics, fixed-order sums, the
+    cut nodes' partials in tile order."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("hub", "padded"):
+            c = _segment_case(kind, 63, 66, dev, dtype)
+            a = tss.sorted_segment_sum(c["m_sorted"], c["seg"], c["v"])
+            b = tss.sorted_segment_sum(c["m_sorted"], c["seg"], c["v"])
+            assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# gather_pair's forward (csrc/gather.cu) at the main path's width, an odd
+# one and off alignment
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hdim", [64, 67])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_pair_fwd_repeats_bit_for_bit(dev, dtype, hdim, aligned):
+    """Equal to the plain add bit for bit, the same bits from two launches,
+    one launch counted a call, over 40,001 edges (1,251 chunks of 32, the
+    last partial).  ``aligned=False``: tables one element into their
+    storage (the one-element path)."""
+    c = _case(28, 300, 40_001, 8, hdim, dev, dtype)
+    pa, pb = c["pa"], c["pb"]
+    if not aligned:
+        pa, pb = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                  for t in (pa, pb))
+    n0 = tsp.gather_pair.launches
+    got = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
+    again = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
+    want = tsp.gather_pair_reference(pa, pb, c["s"], c["r"])
+    torch.cuda.synchronize()
+    assert tsp.gather_pair.launches == n0 + 2
+    assert got.dtype == dtype and got.shape == (40_001, hdim)
+    assert torch.equal(got, want) and torch.equal(got, again)
