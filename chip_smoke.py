@@ -52,7 +52,19 @@ it:
    against its sparse route with gradients; the NodeClassifier on 8 packed
    hit graphs (15,848 nodes, 331,264 edges): node logits and gradients
    against its sparse route, 32 Adam steps of the ``Trainer`` with
-   ``target="node"`` (7 + 7 kernel launches a step) and one unfused step.
+   ``target="node"`` (7 + 7 kernel launches a step) and one unfused step;
+9. cli: 108 fullevent sectors written as NPZ files, the train CLI on the
+   fused route in bf16 (2 epochs of 2 steps and a validation batch with
+   ``--prefetch 2``, resumed for a third with ``--prefetch 0``, exact
+   launch counts), one epoch on the blocked route, the infer CLI's
+   ``--benchmark`` on the fused run's model, its scores checked against
+   the sparse route; then the host loop timed: the CLI step with and
+   without prefetching against a ``run_steps`` step on one pre-built
+   batch, ``pack_graphs`` and ``attach_plans`` a batch, the device's busy
+   share over a CLI epoch, each printed with the card's name and limit;
+10. gcn: the GCRN and the six baselines at the widths the JAX package's
+   tests train, logits on the card against the CPU, 50 Adam steps each
+   with a falling loss (no hand-written kernel).
 
 Every reference is the plain ``sparse`` route in f32.  A bf16 route is
 held against it at the weights and inputs the bf16 route computes with
@@ -163,6 +175,23 @@ BF16_GRAD_REL = 1.5e-2
 # memory, and f32 outside the tensor cores, which these kernels use.
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 
+# The front door at the fullevent width: 108 Toy2D kNN sectors (3 x 36) as
+# NPZ files, batches of 36 (2 train batches and 1 valid batch), the train
+# CLI on the fused route in bf16, resumed, and on the blocked route, then
+# the infer CLI on 8 files.
+CLI_SECTORS, CLI_BATCH, CLI_VALID_FRAC = 3 * N_SECTORS, N_SECTORS, 0.34
+CLI_TRAIN_STEPS, CLI_VALID_BATCHES = 2, 1
+CLI_TIMING_EPOCHS = 4       # epochs of each prefetch timing run (3 batches)
+CLI_INFER_GRAPHS = 8
+# Infer's dense route against the sparse route, both f32, same weights:
+# summation order only, per-file means of [0, 1] scores.
+INFER_SCORE_RTOL = 1e-4
+# The GCN and baseline widths the JAX package's tests train
+# (tests/test_gcn.py:110-122, tests/test_baselines.py); card against CPU,
+# f32 (TF32 off): summation order only.
+GCN_TOL = (1e-5, 1e-6)                  # (rtol, atol)
+GCN_STEPS = 50
+
 
 def fail(msg: str):
     sys.exit(f"chip_smoke: FAILED: {msg}")
@@ -178,11 +207,7 @@ def phase_device() -> str:
         fail("no CUDA device (torch.cuda.is_available() is False)")
     import gnn_fpga_tpu_torch  # noqa: F401  (fails here, before any output,
     #                            when run outside a checkout of the repo)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     return torch.cuda.get_device_name(0)
 
 
@@ -1489,6 +1514,329 @@ def phase_node(device, profile_path=None) -> dict:
     return launches
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def write_sector_files(directory) -> None:
+    """The CLI's dataset: CLI_SECTORS Toy2D kNN sectors of the fullevent
+    configuration (seeds 0, 1, 2; 36 each) as SparseGraph NPZ files with
+    their per-node ``layer`` arrays."""
+    import os
+
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    for seed in range(CLI_SECTORS // N_SECTORS):
+        cfg = toy2d.Toy2DConfig(n_layers=N_LAYERS, n_tracks=N_TRACKS,
+                                seed=seed)
+        sectors = G.unbatch_graphs(
+            toy2d.make_knn_segment_graphs(cfg, N_SECTORS, k=K_NN))
+        layers = toy2d.generate_events(cfg, N_SECTORS)[3]
+        for i, g in enumerate(sectors):
+            G.save_npz(g, os.path.join(directory,
+                                       f"sector{seed}_{i:02d}.npz"),
+                       layer=layers[i])
+
+
+def epoch_times(run_dir) -> list:
+    """Seconds of each epoch of a train CLI run (its metrics.jsonl)."""
+    import os
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line)["time_s"] for line in f]
+
+
+def host_loop_ms(input_dir) -> tuple:
+    """Host ms a batch of ``pack_graphs`` and of ``attach_plans`` on the
+    CLI's batches (36 sectors, the CLI's bucket), mean of 3 each."""
+    from gnn_fpga_tpu_torch.cli import train
+    from gnn_fpga_tpu_torch.core import batching
+    from gnn_fpga_tpu_torch.core import graph as G
+
+    graphs, _ = train.load_graph_files(input_dir, CLI_SECTORS)
+    spec = batching.choose_bucket(graphs, edge_multiple=256)
+    pack, plans = [], []
+    for b in range(3):
+        chunk = graphs[b * CLI_BATCH:(b + 1) * CLI_BATCH]
+        t = time.perf_counter()
+        g = G.pack_graphs(chunk, n_node=spec.n_node * CLI_BATCH,
+                          n_edge=spec.n_edge * CLI_BATCH)
+        pack.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        G.attach_plans(g)
+        plans.append((time.perf_counter() - t) * 1e3)
+    return sum(pack) / 3, sum(plans) / 3, g
+
+
+def phase_cli(device) -> dict:
+    """The train and infer CLIs at the fullevent width: 2 epochs on the
+    fused route in bf16 with prefetching, resumed for a third without, one
+    epoch on the blocked route, and infer --benchmark on the fused run's
+    model; then the host loop timed (prefetch on and off, packing and
+    plans per batch, the device's busy share over an epoch, a
+    ``run_steps`` step on one pre-built batch)."""
+    import os
+    import tempfile
+
+    from gnn_fpga_tpu_torch.cli import infer, train
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs = os.path.join(tmp, "graphs"), os.path.join(tmp, "runs")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        write_sector_files(data)
+        print(f"cli: {CLI_SECTORS} sector files written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        common = ["--input-dir", data, "--n-samples", str(CLI_SECTORS),
+                  "--batch-size", str(CLI_BATCH), "--hidden-dim", str(HIDDEN),
+                  "--n-iters", str(N_ITERS),
+                  "--learning-rate", str(LEARNING_RATE),
+                  "--pos-weight", str(POS_WEIGHT), "--bf16",
+                  "--test-frac", "0"]
+        fused = common + ["--aggregation", "pallas", "--valid-frac",
+                          str(CLI_VALID_FRAC), "--output-dir",
+                          os.path.join(runs, "pallas")]
+        spmm.reset_launch_counts()
+        # --- the main path: 2 fused epochs with prefetching, then resumed
+        # for a third without, one blocked epoch, the infer CLI
+        first = train.main(fused + ["--n-epochs", "2", "--prefetch", "2"])
+        first_counts = spmm.launch_counts()
+        resumed = train.main(fused + ["--n-epochs", "1", "--resume",
+                                      "--prefetch", "0"])
+        resumed_counts = spmm.launch_counts()
+        blocked = train.main(common + [
+            "--aggregation", "blocked", "--group", str(GROUP),
+            "--valid-frac", str(CLI_VALID_FRAC), "--n-epochs", "1",
+            "--output-dir", os.path.join(runs, "blocked")])
+        model_path = os.path.join(runs, "pallas", "model.npz")
+        results, latency = infer.run(infer.parse_args([
+            "--model", model_path, "--input-dir", data,
+            "--n-graphs", str(CLI_INFER_GRAPHS), "--hidden-dim", str(HIDDEN),
+            "--n-iters", str(N_ITERS), "--benchmark"]))
+        launches = spmm.launch_counts()
+        # --- checks (not counted)
+        per_epoch = dict(iteration_pair=N_ITERS * (CLI_TRAIN_STEPS
+                                                   + CLI_VALID_BATCHES),
+                         iteration_pair_bwd=N_ITERS * CLI_TRAIN_STEPS,
+                         gather_pair=CLI_TRAIN_STEPS + CLI_VALID_BATCHES,
+                         gather_pair_bwd=CLI_TRAIN_STEPS)
+        for what, got, epochs in (
+                ("2 fused epochs", first_counts, 2),
+                ("the resumed epoch",
+                 {k: resumed_counts[k] - first_counts[k] for k in launches},
+                 1),
+                ("the blocked epoch and infer",
+                 {k: launches[k] - resumed_counts[k] for k in launches}, 0)):
+            want = expected_counts(**{k: v * epochs
+                                      for k, v in per_epoch.items()})
+            print(f"  launches in {what}: {got}", flush=True)
+            if got != want:
+                fail(f"cli: {what} launched {got}, expected {want} "
+                     f"({CLI_TRAIN_STEPS} steps and {CLI_VALID_BATCHES} "
+                     f"validation forward an epoch)")
+        losses = resumed.train_losses + resumed.valid_losses \
+            + blocked.train_losses + blocked.valid_losses
+        print(f"  fused losses: train {resumed.train_losses}, valid "
+              f"{resumed.valid_losses}; blocked: train "
+              f"{blocked.train_losses}, valid {blocked.valid_losses}",
+              flush=True)
+        if not torch.isfinite(torch.tensor(losses)).all():
+            fail("cli: a loss is not finite")
+        if resumed.epoch != 3 or resumed.train_losses[:2] != \
+                first.train_losses:
+            fail(f"cli: the resumed run is at epoch {resumed.epoch}, "
+                 "expected 3 continuing the first two")
+        check_infer(results, model_path, data, device)
+        measure_host_loop(common, data, runs, device, latency)
+    return launches
+
+
+def check_infer(results, model_path, data, device) -> None:
+    """infer's per-file mean scores (dense route, f32) against the sparse
+    route in f32 at the same weights."""
+    import glob
+    import os
+
+    from gnn_fpga_tpu_torch.core import batching
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.utils import serialization
+
+    files = sorted(glob.glob(os.path.join(data, "*.npz")))[:CLI_INFER_GRAPHS]
+    graphs = [G.load_npz(f) for f in files]
+    spec = batching.choose_bucket(graphs)
+    model = mpnn.init_segment_classifier(
+        mpnn.SegmentClassifierConfig(input_dim=INPUT_DIM, hidden_dim=HIDDEN,
+                                     n_iters=N_ITERS, aggregation="sparse"),
+        torch.Generator(), device=device)
+    serialization.load_jax_params(
+        model, serialization.load_params_npz(model_path))
+    want = []
+    with torch.inference_mode():
+        for g in graphs:
+            gp = G.pad_graph(g, spec.n_node, spec.n_edge).to(device)
+            em = gp.edge_mask > 0
+            want.append(float(mpnn.segment_classifier(model, gp)[em].mean()))
+    got = [r["mean_score"] for r in results]
+    if [r["file"] for r in results] != [os.path.basename(f) for f in files]:
+        fail("cli: infer scored other files")
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"  infer per-file mean scores {' '.join(f'{x:.6f}' for x in got)}"
+          f"; max rel err vs the f32 sparse route {err:.3e} (rtol "
+          f"{INFER_SCORE_RTOL:g}) {'ok' if err <= INFER_SCORE_RTOL else 'FAIL'}",
+          flush=True)
+    if not err <= INFER_SCORE_RTOL:
+        fail("cli: infer's scores disagree with the sparse route")
+
+
+def measure_host_loop(common, data, runs, device, infer_latency) -> None:
+    """The CLI's step against a ``run_steps`` step on one pre-built batch,
+    with and without prefetching, the host time of packing and plans a
+    batch, and the device's busy share over an epoch (profiler on)."""
+    import os
+
+    from gnn_fpga_tpu_torch.cli import train
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    timing = common + ["--aggregation", "pallas", "--valid-frac", "0",
+                       "--n-epochs", str(CLI_TIMING_EPOCHS)]
+    steps = CLI_SECTORS // CLI_BATCH
+    step_ms = {2: [], 0: []}
+    for i, prefetch in enumerate((2, 0, 0, 2)):     # in turns
+        out = os.path.join(runs, f"timing{i}")
+        train.main(timing + ["--prefetch", str(prefetch), "--output-dir",
+                             out])
+        # epoch 0 takes the first batch's build and the warm-up
+        step_ms[prefetch] += [t / steps * 1e3 for t in epoch_times(out)[1:]]
+    pack_ms, plans_ms, g = host_loop_ms(data)
+    out = os.path.join(runs, "profiled")
+    wall, busy = profiled(lambda: train.main(
+        timing[:-1] + ["1", "--output-dir", out]))
+    epoch_ms = epoch_times(out)[0] * 1e3
+
+    cfg = mpnn.SegmentClassifierConfig(
+        input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+        compute_dtype=torch.bfloat16, aggregation="pallas")
+    trainer = Trainer(mpnn.init_segment_classifier(
+        cfg, torch.Generator().manual_seed(0), device=device),
+        TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT))
+    batch = G.attach_plans(g).to(device)
+    trainer.run_steps([batch, batch])                        # warm-up
+    run_ms = []
+    for _ in range(8):
+        t = time.perf_counter()
+        trainer.run_steps([batch])
+        run_ms.append((time.perf_counter() - t) * 1e3)
+    name = card()
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"  [{name}] cli fused bf16 step (epoch wall / {steps} steps, "
+          f"epochs 1-{CLI_TIMING_EPOCHS - 1} of two runs each): "
+          f"--prefetch 2 {mean(step_ms[2]):.3f} ms "
+          f"({' '.join(f'{x:.3f}' for x in step_ms[2])}), --prefetch 0 "
+          f"{mean(step_ms[0]):.3f} ms "
+          f"({' '.join(f'{x:.3f}' for x in step_ms[0])})", flush=True)
+    print(f"  [{name}] run_steps fused bf16 step on one pre-built batch of "
+          f"{batch.n_edge} edges: {mean(run_ms):.3f} ms (min "
+          f"{min(run_ms):.3f}, max {max(run_ms):.3f}, 8 steps); host loop "
+          f"= cli step - run_steps step: {mean(step_ms[2]) - mean(run_ms):.3f}"
+          f" ms with prefetch, {mean(step_ms[0]) - mean(run_ms):.3f} ms "
+          f"without", flush=True)
+    print(f"  [{name}] host time a batch of {CLI_BATCH} sectors: pack_graphs "
+          f"{pack_ms:.3f} ms, attach_plans {plans_ms:.3f} ms", flush=True)
+    print(f"  [{name}] one cli epoch ({steps} steps) under torch.profiler: "
+          f"epoch {epoch_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / epoch_ms:.1%} of the epoch; the whole CLI call "
+          f"{wall:.3f} ms)", flush=True)
+    print(f"  [{name}] infer --benchmark (dense route, f32, one sector "
+          f"padded): {infer_latency * 1e6:.1f} us/graph", flush=True)
+
+
+def phase_gcn(device) -> dict:
+    """The GCN family and the baselines at the widths the JAX package's
+    tests train: a forward on the card against the CPU at the same
+    weights, then GCN_STEPS Adam steps on the card with a falling loss.
+    No hand-written kernel runs here."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from gnn_fpga_tpu_torch.data import toy2d
+    from gnn_fpga_tpu_torch.models import baselines as bl
+    from gnn_fpga_tpu_torch.models import gcn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    t = lambda *arrays: [torch.from_numpy(np.asarray(a)) for a in arrays]
+    seg_cfg = toy2d.Toy2DConfig(n_layers=5, n_tracks=3, seed=7)
+    gcn_x, gcn_a, gcn_y = t(*toy2d.make_gcn_data(
+        toy2d.Toy2DConfig(n_layers=6, n_tracks=3, seed=0), 512,
+        seed_layers=2))
+    seg = toy2d.make_segment_graphs(seg_cfg, 512)
+    grids, assoc = t(*toy2d.make_segmenter_data(seg_cfg, 512))
+    sgrids, seeds, targets = t(*toy2d.make_seeded_grid_data(seg_cfg, 512,
+                                                            seed_size=2))
+    lt = dict(n_layers=5, n_tracks=3)
+    cases = {   # name -> (model class, config, inputs, targets, loss)
+        "gcrn": (gcn.GCNClassifier, gcn.GCNConfig(
+            input_dim=3, hidden_dims=(8, 8, 8, 8), residual=True),
+            (gcn_x, gcn_a), gcn_y, F.binary_cross_entropy_with_logits),
+        "fc_segment_classifier": (
+            bl.FCSegmentClassifier, bl.FCSegmentClassifierConfig(
+                n_hits=15, n_segments=seg.n_edge, input_dim=2,
+                hidden_dim=64), (seg.x,), seg.y,
+            F.binary_cross_entropy_with_logits),
+        "fc_segmenter": (bl.FCSegmenter, bl.SegmenterConfig(
+            hidden_dim=64, **lt), (grids,), assoc, bl.softmax_xent),
+        "conv_segmenter": (bl.ConvSegmenter, bl.ConvSegmenterConfig(
+            adj_filters=(16, 16), lay_filters=(8,), **lt), (grids,), assoc,
+            bl.softmax_xent),
+        "seeded_fc": (bl.SeededFC, bl.SeededConfig(
+            seed_size=2, hidden_dim=64, **lt), (sgrids, seeds), targets,
+            bl.softmax_xent),
+        "seeded_cnn": (bl.SeededCNN, bl.SeededCNNConfig(
+            seed_size=2, n_conv=3, n_filters=8, **lt), (sgrids, seeds),
+            targets, bl.softmax_xent),
+        "seeded_lstm": (bl.SeededLSTM, bl.SeededLSTMConfig(
+            seed_size=2, hidden_dim=16, **lt), (sgrids, seeds), targets,
+            bl.softmax_xent),
+    }
+    print("gcn:", flush=True)
+    spmm.reset_launch_counts()
+    for name, (cls, cfg, inputs, target, loss_fn) in cases.items():
+        cpu = cls(cfg, torch.Generator().manual_seed(0), device="cpu")
+        model = cls(cfg, torch.Generator(), device=device)
+        model.load_state_dict(cpu.state_dict())
+        on_card = [x.to(device) for x in inputs]
+        target = target.to(device)
+        with torch.no_grad():
+            compare(f"{name} logits, card vs CPU", model(*on_card).cpu(),
+                    cpu(*inputs), *GCN_TOL)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(GCN_STEPS):
+            loss = loss_fn(model(*on_card), target)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        losses = torch.stack(losses).cpu()
+        ms = (time.perf_counter() - t0) * 1e3 / GCN_STEPS
+        print(f"  {name}: {sum(p.numel() for p in model.parameters())} "
+              f"parameters; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+              f"{GCN_STEPS} Adam steps ({ms:.3f} ms/step)", flush=True)
+        if not torch.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"gcn: {name}'s loss did not fall on the card")
+    return spmm.launch_counts()
+
+
 def profiled(run, table_to=None) -> tuple:
     """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler;
     ``table_to``: ``(path, what)`` appends the profiler's table to
@@ -1564,7 +1912,8 @@ def main():
              phase_training(device, graphs, args.profile),
              phase_ops(graphs[0]), phase_blocked(device, args.profile),
              phase_unshared(device, graphs, args.profile),
-             phase_node(device, args.profile))
+             phase_node(device, args.profile), phase_cli(device),
+             phase_gcn(device))
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
                  launches=sum(path[name] for path in paths),

@@ -7,13 +7,15 @@ kernels.  On CPU tensors every kernel wrapper takes its plain PyTorch
 version instead.
 
 Subpackages:
-  core      COO graph container, padding/packing, NPZ I/O, kernel plans
-  data      Toy2D synthetic tracking graphs
+  core      COO graph container, padding/packing, NPZ I/O, kernel plans,
+            bucketed batching, prefetching to the card
+  data      Toy2D synthetic tracking graphs and grid/GCN task data
   ops       gather / segment-sum primitives and the CUDA kernel wrappers
-  models    the SegmentClassifier interaction network
+  models    the interaction-network heads, the GCN family, the baselines
   train     training engine (Trainer), checkpoints, metrics
   compress  magnitude pruning masks
-  utils     carrying parameters to and from the JAX package
+  cli       the train and infer command lines
+  utils     carrying parameters to and from the JAX package, profiling
 """
 
 __version__ = "0.1.0"

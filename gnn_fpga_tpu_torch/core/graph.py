@@ -16,7 +16,7 @@ matrices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -30,8 +30,41 @@ def _np(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+class TensorFields:
+    """Methods of the frozen dataclasses that carry tensors (:class:`Graph`
+    and the kernels' plans): each applies to every tensor field and
+    recurses into fields that are themselves ``TensorFields``; other fields
+    (host ints such as ``SortedSegments.n_kept``) are kept as they are."""
+
+    def _map(self, fn):
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (torch.Tensor, TensorFields)):
+                kw[f.name] = fn(v)
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device, non_blocking: bool = False):
+        """A copy on ``device``; with ``non_blocking`` a copy from pinned
+        host memory is asynchronous on the current stream."""
+        return self._map(lambda v: v.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self):
+        """A copy in page-locked host memory (needs a CUDA device)."""
+        return self._map(lambda v: v.pin_memory())
+
+    def tensors(self) -> Iterator[torch.Tensor]:
+        """Every tensor, nested fields included."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif isinstance(v, TensorFields):
+                yield from v.tensors()
+
+
 @dataclasses.dataclass(frozen=True)
-class Graph:
+class Graph(TensorFields):
     """A (possibly padded, possibly batched) COO hit graph.
 
     Per-graph shapes are ``x: [N, F]`` float32, ``senders/receivers: [E]``
@@ -68,14 +101,6 @@ class Graph:
 
     def replace(self, **kw) -> "Graph":
         return dataclasses.replace(self, **kw)
-
-    def to(self, device) -> "Graph":
-        """Copy every tensor (plans included) to ``device``."""
-        kw = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            kw[f.name] = None if v is None else v.to(device)
-        return Graph(**kw)
 
 
 def from_coo(x, senders, receivers, y, node_y=None) -> Graph:
@@ -291,3 +316,17 @@ def load_npz(filename) -> Graph:
     senders[data["Ro_cols"].astype(np.int64)] = data["Ro_rows"].astype(np.int32)
     return from_coo(data["X"], senders, receivers, data["y"],
                     node_y=data.get("node_y"))
+
+
+# The keys of a SparseGraph NPZ that load_npz reads; any other key is an
+# extra (per-node ``layer``, per-graph pt, eta, ...).
+_SPARSE_KEYS = ("X", "Ri_rows", "Ri_cols", "Ro_rows", "Ro_cols", "y",
+                "node_y")
+
+
+def load_npz_with_extras(filename):
+    """``(graph, extras)``: :func:`load_npz` and the file's other arrays
+    by key."""
+    with np.load(filename) as f:
+        extras = {k: f[k] for k in f.files if k not in _SPARSE_KEYS}
+    return load_npz(filename), extras

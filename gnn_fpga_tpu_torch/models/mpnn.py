@@ -117,6 +117,9 @@ class _Linear(nn.Module):
         self.weight = _weight(out_dim, in_dim, dtype, device)
         self.bias = _bias(out_dim, dtype, device) if bias else None
 
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
 
 class EdgeNetwork(nn.Module):
     """Two-layer edge MLP ``2D -> H -> 1`` with its first layer split into

@@ -25,11 +25,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gnn_fpga_tpu_torch.core.graph import Graph, _np
+from gnn_fpga_tpu_torch.core.graph import Graph, TensorFields, _np
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockedPlan:
+class BlockedPlan(TensorFields):
     """Per-graph block structure (leading batch axes allowed), int32:
 
       block_nodes: [..., nB, bn]  global node id of each block slot
@@ -57,10 +57,6 @@ class BlockedPlan:
     @property
     def block_e(self) -> int:
         return self.src_local.shape[-1]
-
-    def to(self, device) -> "BlockedPlan":
-        return BlockedPlan(self.block_nodes.to(device),
-                           self.src_local.to(device), self.dst_local.to(device))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gnn_fpga_tpu_torch.core.graph import TensorFields
 from gnn_fpga_tpu_torch.ops.cuda.spmm import (_DTYPE_CODES, _alignment,
                                               _check_cuda, _check_widths,
                                               _kernel_device, _lib, _ptr,
@@ -75,7 +76,7 @@ def segment_launch(d: int, dtype, align: int = 16) -> SegmentLaunch:
 
 
 @dataclasses.dataclass(frozen=True)
-class SortedSegments:
+class SortedSegments(TensorFields):
     """Reusable sorted structure of one topology's segment ids (int32):
 
       order:      [E]          stable permutation sorting the ids
@@ -92,11 +93,6 @@ class SortedSegments:
     ptr: torch.Tensor
     n_node: int
     n_kept: int
-
-    def to(self, device) -> "SortedSegments":
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device)
-                     for f in ("order", "sorted_ids", "ptr")})
 
 
 def build_sorted_segments(ids, n_node: int) -> SortedSegments:

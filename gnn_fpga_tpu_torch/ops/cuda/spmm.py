@@ -56,6 +56,7 @@ import functools
 import numpy as np
 import torch
 
+from gnn_fpga_tpu_torch.core.graph import TensorFields
 from gnn_fpga_tpu_torch.ops.segment import segment_sum
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,7 +64,7 @@ _MAX_WIDTH = 256   # 8 row chunks of 32 lanes in csrc/
 
 
 @dataclasses.dataclass(frozen=True)
-class EdgePlan:
+class EdgePlan(TensorFields):
     """Sorted-edge plan for one aggregation direction.
 
     ``seg`` is the endpoint the edges are grouped by, ``oth`` the gathered
@@ -89,15 +90,9 @@ class EdgePlan:
     n_node: int
     n_edge: int
 
-    def to(self, device) -> "EdgePlan":
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device)
-                     for f in ("order", "inv_order", "sorted_seg",
-                               "sorted_oth", "seg_ptr", "long_seg")})
-
 
 @dataclasses.dataclass(frozen=True)
-class IterItems:
+class IterItems(TensorFields):
     """Work items of the fused iteration kernels (:func:`iteration_pair`
     and :func:`iteration_pair_bwd`), built once per topology.
 
@@ -136,13 +131,9 @@ class IterItems:
     def n_split(self) -> int:
         return self.splits.shape[0]
 
-    def to(self, device) -> "IterItems":
-        return dataclasses.replace(self, items=self.items.to(device),
-                                   splits=self.splits.to(device))
-
 
 @dataclasses.dataclass(frozen=True)
-class AggPlans:
+class AggPlans(TensorFields):
     """The (receiver-sorted, sender-sorted) plan pair of a graph.
 
     ``recv`` groups edges by receiver and gathers senders (``mi``); ``send``
@@ -156,10 +147,6 @@ class AggPlans:
     send: EdgePlan
     send_in_recv: torch.Tensor
     items: IterItems
-
-    def to(self, device) -> "AggPlans":
-        return AggPlans(self.recv.to(device), self.send.to(device),
-                        self.send_in_recv.to(device), self.items.to(device))
 
 
 # Segments longer than this are walked by the eight warps of a block in

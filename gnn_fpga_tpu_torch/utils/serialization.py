@@ -17,6 +17,13 @@ pruning-mask tree to the port's layout.  The tree follows the model:
 JAX stores a weight as ``[in, out]``, ``nn.Linear`` as ``[out, in]``; the
 JAX edge network's first layer ``[2D, H]`` becomes the port's
 sender/receiver halves ``pa``/``pb``.
+
+The GCN classifier (:mod:`~gnn_fpga_tpu_torch.models.gcn`) and the
+baselines (:mod:`~gnn_fpga_tpu_torch.models.baselines`) mirror their JAX
+trees: a submodule or parameter per key, an ``nn.ModuleList`` per list,
+and a layer (a submodule with a ``weight``) per ``{"w", "b"}``, its weight
+transposed (a linear layer) or HWIO <-> ``[out, in, kh, kw]`` (a conv); a
+bare parameter (the LSTM's) keeps the JAX layout.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import json
 
 import numpy as np
 import torch
+from torch import nn
 
 from gnn_fpga_tpu_torch.core.device import default_device
 
@@ -176,11 +184,76 @@ def _jax_state(model, params) -> dict:
     return state
 
 
+def _from_jax_weight(w) -> np.ndarray:
+    w = _f32(w)
+    return w.T if w.ndim == 2 else w.transpose(3, 2, 0, 1)
+
+
+def _to_jax_weight(w) -> np.ndarray:
+    return w.T.copy() if w.ndim == 2 else w.transpose(2, 3, 1, 0).copy()
+
+
+def _keys_must_match(tree, keys, where) -> None:
+    if not isinstance(tree, dict) or set(tree) != set(keys):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"the JAX tree at {where or 'the root'!r} holds "
+                         f"{got}, the model {sorted(keys)}")
+
+
+def _mirror_state(module: nn.Module, tree, prefix: str = "") -> dict:
+    """The port's state dict (numpy) of a JAX tree that mirrors
+    ``module`` (a GCN or baseline model)."""
+    own = dict(module.named_parameters(recurse=False))
+    if "weight" in own:
+        _keys_must_match(tree, ["w"] + (["b"] if "bias" in own else []),
+                         prefix)
+        state = {f"{prefix}weight": _from_jax_weight(tree["w"])}
+        if "bias" in own:
+            state[f"{prefix}bias"] = tree["b"]
+        return state
+    if isinstance(module, nn.ModuleList):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(module):
+            raise ValueError(f"the JAX tree at {prefix!r} is not a list of "
+                             f"{len(module)}")
+        children = [(str(i), m, tree[i]) for i, m in enumerate(module)]
+    else:
+        kids = dict(module.named_children())
+        _keys_must_match(tree, list(own) + list(kids), prefix)
+        children = [(k, m, tree[k]) for k, m in kids.items()]
+    state = {f"{prefix}{k}": tree[k] for k in own}
+    for k, m, sub in children:
+        state.update(_mirror_state(m, sub, f"{prefix}{k}."))
+    return state
+
+
+def _mirror_tree(module: nn.Module):
+    """The JAX tree of a module that mirrors it (the inverse of
+    :func:`_mirror_state`), float32 numpy."""
+    own = {k: p.detach().float().cpu().numpy()
+           for k, p in module.named_parameters(recurse=False)}
+    if "weight" in own:
+        layer = {"w": _to_jax_weight(own["weight"])}
+        if "bias" in own:
+            layer["b"] = own["bias"]
+        return layer
+    if isinstance(module, nn.ModuleList):
+        return [_mirror_tree(m) for m in module]
+    own.update((k, _mirror_tree(m)) for k, m in module.named_children())
+    return own
+
+
+def _is_mpnn_head(model) -> bool:
+    from gnn_fpga_tpu_torch.models.mpnn import _Model
+
+    return isinstance(model, _Model)
+
+
 def load_jax_params(model, params) -> None:
-    """Copy a JAX parameter tree (numpy arrays) of ``model``'s kind
-    (SegmentClassifier, SegmentClassifierUnshared or NodeClassifier) into
-    ``model`` in place."""
-    state = _jax_state(model, params)
+    """Copy a JAX parameter tree (numpy arrays) of ``model``'s kind (a
+    SegmentClassifier, SegmentClassifierUnshared or NodeClassifier, a GCN
+    classifier or a baseline) into ``model`` in place."""
+    state = (_jax_state(model, params) if _is_mpnn_head(model)
+             else _mirror_state(model, params))
     names = [n for n, _ in model.named_parameters()]
     if set(state) != set(names):
         raise ValueError(
@@ -200,9 +273,12 @@ def to_jax_params(model) -> dict:
     """The JAX package's parameter tree of ``model`` as float32 numpy
     arrays (the inverse of :func:`load_jax_params`): weights ``[in, out]``,
     ``pa``/``pb`` joined into the edge network's ``[2D, H]`` first layer,
-    the unshared head's per-iteration networks stacked ``[n_iters, ...]``."""
+    the unshared head's per-iteration networks stacked ``[n_iters, ...]``;
+    a GCN classifier's or a baseline's mirrored tree."""
     from gnn_fpga_tpu_torch.models.mpnn import SegmentClassifierUnshared
 
+    if not _is_mpnn_head(model):
+        return _mirror_tree(model)
     t = {name: p.detach().float().cpu().numpy()
          for name, p in model.named_parameters()}
     lin = lambda n: {"w": t[f"{n}.weight"].T.copy(), "b": t[f"{n}.bias"]}

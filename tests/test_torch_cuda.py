@@ -924,3 +924,101 @@ def test_gather_pair_fwd_repeats_bit_for_bit(dev, dtype, hdim, aligned):
     assert tsp.gather_pair.launches == n0 + 2
     assert got.dtype == dtype and got.shape == (40_001, hdim)
     assert torch.equal(got, want) and torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# The host loop: pinned, prefetched batches and the train CLI on the card
+# ---------------------------------------------------------------------------
+
+def _planned_batches(seed=0):
+    """An endless host generator of packed 4-sector batches with the
+    kernels' plans attached, as the train CLI makes them."""
+    from gnn_fpga_tpu_torch.core import batching
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    cfg = toy2d.Toy2DConfig(n_layers=8, n_tracks=6, seed=seed)
+    graphs = tg.unbatch_graphs(toy2d.make_knn_segment_graphs(cfg, 24, k=3))
+    return batching.batch_generator(
+        graphs, 4, seed=seed, packed=True,
+        transform=lambda b, idx: tg.attach_plans(b))
+
+
+def test_pin_memory_pins_every_tensor_and_copies_back_equal(dev):
+    g = next(_planned_batches())
+    pinned = g.pin_memory()
+    # an empty tensor (a plan with no long segments) has no memory to pin
+    assert all(t.is_pinned() or t.numel() == 0 for t in pinned.tensors())
+    assert any(t.numel() == 0 for t in pinned.tensors())
+    moved = pinned.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    assert all(t.device.type == "cuda" for t in moved.tensors())
+    assert moved.plans.items.n_recv == g.plans.items.n_recv
+    for a, b in zip(moved.tensors(), g.tensors()):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_prefetched_batches_equal_synchronous_copies(dev):
+    """50 batches with plans attached, prefetched on a side stream, each
+    used at once by the fused forward on the current stream while the next
+    copies run: the same bits as the forward on batches copied one by one,
+    and the same tensors; freed batches are not handed out early (a new
+    allocation after each step overwrites whatever memory it is given)."""
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas"),
+        torch.Generator().manual_seed(0), device=dev)
+    gen = _planned_batches(1)
+    want = []
+    with torch.inference_mode():
+        for _ in range(50):
+            g = next(gen).to(dev)
+            want.append((tm.segment_classifier(model, g).cpu(),
+                         [t.cpu() for t in g.tensors()]))
+        it = prefetch_to_device(_planned_batches(1), size=2, device=dev,
+                                n_batches=50)
+        n = 0
+        for g, (probs, tensors) in zip(it, want):
+            got = tm.segment_classifier(model, g)
+            del g
+            torch.full((1 << 20,), float("nan"), device=dev)
+            assert torch.equal(got.cpu(), probs), n
+            n += 1
+        assert n == 50
+    it = prefetch_to_device(_planned_batches(1), size=2, device=dev,
+                            n_batches=50)
+    for g, (_, tensors) in zip(it, want):
+        for a, b in zip(g.tensors(), tensors):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_train_cli_epoch_on_the_pallas_route(dev, tmp_path):
+    """One epoch of the train CLI on the fused route with prefetching:
+    finite losses, and per step 2 launches each of ``iteration_pair``
+    forward and backward and one of ``gather_pair`` and its backward
+    (plus the validation forward)."""
+    from gnn_fpga_tpu_torch.cli import train
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    cfg = toy2d.Toy2DConfig(n_layers=8, n_tracks=6, seed=2)
+    graphs = tg.unbatch_graphs(toy2d.make_knn_segment_graphs(cfg, 12, k=3))
+    _, _, _, layers = toy2d.generate_events(cfg, 12)
+    for i, g in enumerate(graphs):
+        tg.save_npz(g, str(tmp_path / f"g{i:02d}.npz"), layer=layers[i])
+    tsp.reset_launch_counts()
+    trainer = train.main([
+        "--input-dir", str(tmp_path), "--output-dir", str(tmp_path / "run"),
+        "--aggregation", "pallas", "--bf16", "--batch-size", "4",
+        "--n-epochs", "1", "--hidden-dim", "16", "--n-iters", "2",
+        "--valid-frac", "0.34", "--test-frac", "0", "--prefetch", "2"])
+    counts = tsp.launch_counts()
+    assert next(trainer.model.parameters()).device.type == "cuda"
+    assert np.isfinite(trainer.train_losses).all()
+    assert np.isfinite(trainer.valid_losses).all()
+    steps, valid = 2, 1
+    assert counts["iteration_pair"] == 2 * (steps + valid)
+    assert counts["iteration_pair_bwd"] == 2 * steps
+    assert counts["gather_pair"] == steps + valid
+    assert counts["gather_pair_bwd"] == steps
+    assert (tmp_path / "run" / "model.npz").exists()

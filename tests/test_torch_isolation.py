@@ -20,12 +20,13 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "import gnn_fpga_tpu_torch\n"
-        "from gnn_fpga_tpu_torch.core import graph\n"
+        "from gnn_fpga_tpu_torch.core import graph, batching, prefetch\n"
         "from gnn_fpga_tpu_torch.data import toy2d\n"
         "from gnn_fpga_tpu_torch.ops import segment, dense_incidence, blocked\n"
         "from gnn_fpga_tpu_torch.ops.cuda import spmm, segment_sum, _build\n"
-        "from gnn_fpga_tpu_torch.models import mpnn\n"
-        "from gnn_fpga_tpu_torch.utils import serialization\n"
+        "from gnn_fpga_tpu_torch.models import mpnn, gcn, baselines\n"
+        "from gnn_fpga_tpu_torch.utils import serialization, profiling\n"
+        "from gnn_fpga_tpu_torch.cli import train, infer\n"
         "from gnn_fpga_tpu_torch.train import trainer, checkpoint, metrics\n"
         "from gnn_fpga_tpu_torch.compress import pruning\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
