@@ -64,7 +64,22 @@ it:
    share over a CLI epoch, each printed with the card's name and limit;
 10. gcn: the GCRN and the six baselines at the widths the JAX package's
    tests train, logits on the card against the CPU, 50 Adam steps each
-   with a falling loss (no hand-written kernel).
+   with a falling loss (no hand-written kernel);
+11. capture: the captured train step (CUDA graphs, one for each batch
+   signature) against the eager one over 5 steps from one init on the
+   fused, unfused and blocked routes; the captured serving and infer
+   forwards against the eager ones bit for bit; kernels #1-#7 (and sddmm,
+   sddmm_dual) on plans padded to a static capacity against the unpadded
+   plans bit for bit at the fullevent shape; a batch of another signature
+   raising.
+
+The packed graphs' plans are padded to one capacity that holds all of
+them, as the train CLI pads a bucket's, so that the requests and steps of
+phases 4, 5 and 8 share one static signature: the Trainer's steps and the
+served forwards run as captured CUDA graphs, each signature's first call
+eagerly (reported apart), and the CLI's steps, validation and infer's
+forward too.  Each replay adds the launches its capture recorded to the
+kernels' counts.
 
 Every reference is the plain ``sparse`` route in f32.  A bf16 route is
 held against it at the weights and inputs the bf16 route computes with
@@ -191,6 +206,20 @@ INFER_SCORE_RTOL = 1e-4
 # f32 (TF32 off): summation order only.
 GCN_TOL = (1e-5, 1e-6)                  # (rtol, atol)
 GCN_STEPS = 50
+# Captured against eager steps over CAPTURE_STEPS steps from one init: the
+# rtol the Trainer's steps are held to against the JAX Trainer's.
+CAPTURE_STEPS, CAPTURE_RTOL, CAPTURE_ATOL = 5, 1e-5, 1e-6
+# The readings of the host loop before steps were captured and plans
+# composed (PERF.md's Findings: two runs on an NVIDIA H100 80GB HBM3
+# at 700 W; the eager step's device time and idle share with the profiler
+# on), printed beside this run's.
+BEFORE = {"prefetch 2": "46.297 / 72.325 ms",
+         "prefetch 0": "49.336 / 56.101 ms",
+         "run_steps": "20.351 / 14.317 ms",
+         "attach_plans": "25.202 / 26.026 ms",
+         "pack_graphs": "4.584 / 9.721 ms", "infer": "2741.9 / 3079.0 us",
+         "busy": "5.5% / 4.5% of a CLI epoch", "device": "2.540 ms",
+         "idle": "78.6% (profiler on)"}
 
 
 def fail(msg: str):
@@ -235,6 +264,44 @@ def make_request(seed: int, device, hits: bool = False):
         n_edge = N_EDGE
     g = G.pack_graphs(G.unbatch_graphs(gs), n_node=N_NODE, n_edge=n_edge)
     return G.attach_plans(g).to(device)
+
+
+def pad_to_covering(graphs) -> list:
+    """``graphs`` with their plans padded to the least capacity that holds
+    them all, as the train CLI pads a bucket's batches: one static
+    signature, so one captured step or forward serves every graph."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    cap = spmm.PlanCapacity.covering(*(g.plans for g in graphs))
+    return [g.replace(plans=spmm.pad_plans(g.plans, cap)) for g in graphs]
+
+
+def captured_probs(model, device):
+    """The served forward, ``sigmoid(model(g))``, as a captured call."""
+    from gnn_fpga_tpu_torch.core.capture import CapturedCall
+
+    def forward(g):
+        with torch.no_grad():
+            return torch.sigmoid(model(g))
+
+    return CapturedCall(forward, device)
+
+
+def serve_captured(call, g):
+    """:func:`serve` through a captured call: ``g`` copied into its
+    buffers and the forward replayed."""
+    t = time.perf_counter()
+    p = call(g).clone()
+    torch.cuda.synchronize()
+    return p, (time.perf_counter() - t) * 1e3
+
+
+def step_times(step_ms) -> str:
+    """The first step (eager, then captured) apart from the replays."""
+    rest = step_ms[1:]
+    return (f"{sum(rest) / len(rest):.3f} ms/step replayed (min "
+            f"{min(rest):.3f}, max {max(rest):.3f}, over {len(rest)} "
+            f"steps); first step, eager and captured, {step_ms[0]:.3f} ms")
 
 
 def time_ms(fn, n=20, warmup=3, graph=True) -> tuple:
@@ -996,13 +1063,17 @@ def phase_serving(device, graphs, profile_path=None) -> dict:
     fused_f32 = variant_of(model, device, compute_dtype=None)
 
     print("serving:", flush=True)
+    fused_call = captured_probs(model, device)
+    unfused_call = captured_probs(unfused, device)
     with torch.inference_mode():
-        for m in (model, unfused, sparse):       # warm-up, not counted
-            serve(m, graphs[0])
+        serve(sparse, graphs[0])                 # warm-up, not counted
+        for call in (fused_call, unfused_call):  # eager, then captured
+            serve_captured(call, graphs[0])
         spmm.reset_launch_counts()
-        # --- the main path: 8 requests on the fused route, 1 unfused
-        served = [serve(model, g) for g in graphs]
-        unfused_probs, unfused_ms = serve(unfused, graphs[0])
+        # --- the main path: 8 requests on the fused route, 1 unfused,
+        # each copied into its captured forward's buffers and replayed
+        served = [serve_captured(fused_call, g) for g in graphs]
+        unfused_probs, unfused_ms = serve_captured(unfused_call, graphs[0])
         launches = spmm.launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
@@ -1028,10 +1099,11 @@ def phase_serving(device, graphs, profile_path=None) -> dict:
     sparse_ms = [t for _, t in sparse_served]
     n_real = int(graphs[0].edge_mask.sum().item())
     mean_ms = sum(ms) / len(ms)
-    print(f"  fused route: {mean_ms:.3f} ms/request (min {min(ms):.3f}, "
-          f"max {max(ms):.3f}), {n_real / (mean_ms / 1e3):.4e} edges/s",
+    print(f"  fused route, captured: {mean_ms:.3f} ms/request (min "
+          f"{min(ms):.3f}, max {max(ms):.3f}), "
+          f"{n_real / (mean_ms / 1e3):.4e} edges/s", flush=True)
+    print(f"  unfused route, captured: {unfused_ms:.3f} ms/request",
           flush=True)
-    print(f"  unfused route: {unfused_ms:.3f} ms/request", flush=True)
     print(f"  f32 sparse route: {sum(sparse_ms) / len(sparse_ms):.3f} "
           f"ms/request "
           f"(min {min(sparse_ms):.3f}, max {max(sparse_ms):.3f})", flush=True)
@@ -1166,21 +1238,24 @@ def phase_training(device, graphs, profile_path=None) -> dict:
         fail("a training loss is not finite")
     if not last < first:
         fail("the training loss did not fall over 32 steps")
+    if len(trainer._captured) != 1 or len(unfused._captured) != 1:
+        fail("the packed graphs' steps took more than one capture")
     n_real = int(graphs[0].edge_mask.sum().item())
-    mean_ms = sum(step_ms) / len(step_ms)
-    print(f"  fused bf16 train step: {mean_ms:.3f} ms/step (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
-          f"synchronised by the loss readback), "
-          f"{n_real / (mean_ms / 1e3):.4e} edges/s", flush=True)
+    mean_ms = sum(step_ms[1:]) / (N_STEPS - 1)
+    print(f"  fused bf16 train step: {step_times(step_ms)}; synchronised "
+          f"by the loss readback, {n_real / (mean_ms / 1e3):.4e} edges/s",
+          flush=True)
+    _, fused_busy = profiled(lambda: trainer.run_steps(graphs[:3]))
+    print(f"  [{card()}] fused bf16 train step, replayed: device time "
+          f"{fused_busy / 3:.3f} ms (torch.profiler over 3 replays; before: "
+          f"{BEFORE['device']})", flush=True)
     wall, busy = profiled(lambda: unfused.run_steps(graphs[:3]),
                           profile_path and (profile_path,
                                             "3 unfused training steps"))
-    print(f"  unfused bf16 train step: "
-          f"{sum(unfused_ms) / N_UNFUSED_STEPS:.3f} ms/step (min "
-          f"{min(unfused_ms):.3f}, max {max(unfused_ms):.3f}, over "
-          f"{N_UNFUSED_STEPS} warm steps); device time {busy / 3:.3f} "
-          f"ms/step (torch.profiler over 3 more steps; wall "
-          f"{wall / 3:.3f} ms/step with the profiler on)", flush=True)
+    print(f"  unfused bf16 train step: {step_times(unfused_ms)}; device "
+          f"time {busy / 3:.3f} ms/step (torch.profiler over 3 more "
+          f"replays; wall {wall / 3:.3f} ms/step with the profiler on)",
+          flush=True)
     if profile_path:
         write_profile(profile_path, "a", "3 training steps",
                       lambda: trainer.run_steps(graphs[:3]))
@@ -1354,10 +1429,10 @@ def phase_blocked(device, profile_path=None) -> dict:
         fail("a blocked training loss is not finite")
     if not last < first:
         fail("the blocked training loss did not fall over 32 steps")
-    mean_ms = sum(step_ms) / len(step_ms)
-    print(f"  blocked bf16 train step: {mean_ms:.3f} ms/step (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
-          f"synchronised by the loss readback), "
+    mean_ms = sum(step_ms[1:]) / (N_STEPS - 1)
+    print(f"  blocked bf16 train step: {step_times(step_ms)}; "
+          f"{len(trainer._captured)} batch signatures captured; "
+          f"synchronised by the loss readback, "
           f"{N_REAL_EDGE / (mean_ms / 1e3):.4e} real edges/s", flush=True)
     if profile_path:
         write_profile(profile_path, "a", "1 blocked training step",
@@ -1385,12 +1460,13 @@ def phase_unshared(device, graphs, profile_path=None) -> dict:
     sparse, at = sparse_reference(model, device, torch.bfloat16)
     print(f"unshared: SegmentClassifierUnshared, "
           f"{mpnn.count_params(model)} parameters", flush=True)
+    call = captured_probs(model, device)
     with torch.inference_mode():
-        serve(model, graphs[0])                  # warm-up, not counted
+        serve_captured(call, graphs[0])          # eager, then captured
         serve(sparse, at(graphs[0]))
         spmm.reset_launch_counts()
-        # --- the main path: 8 requests on the fused route
-        served = [serve(model, g) for g in graphs]
+        # --- the main path: 8 requests on the fused route, replayed
+        served = [serve_captured(call, g) for g in graphs]
         launches = spmm.launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
@@ -1429,8 +1505,8 @@ def phase_node(device, profile_path=None) -> dict:
     from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
 
     t0 = time.perf_counter()
-    graphs = [make_request(seed, device, hits=True)
-              for seed in range(N_REQUESTS)]
+    graphs = pad_to_covering([make_request(seed, device, hits=True)
+                              for seed in range(N_REQUESTS)])
     g0 = graphs[0]
     n_real = int(g0.edge_mask.sum().item())
     print(f"node: {N_REQUESTS} packed hit graphs built in "
@@ -1502,12 +1578,13 @@ def phase_node(device, profile_path=None) -> dict:
         fail("a node training loss is not finite")
     if not last < first:
         fail("the node training loss did not fall over 32 steps")
-    mean_ms = sum(step_ms) / len(step_ms)
-    print(f"  fused bf16 node train step: {mean_ms:.3f} ms/step (min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, over {N_STEPS} steps, "
-          f"synchronised by the loss readback), "
+    if len(trainer._captured) != 1:
+        fail("the hit graphs' steps took more than one capture")
+    mean_ms = sum(step_ms[1:]) / (N_STEPS - 1)
+    print(f"  fused bf16 node train step: {step_times(step_ms)}; "
+          f"synchronised by the loss readback, "
           f"{n_real / (mean_ms / 1e3):.4e} real edges/s; unfused step "
-          f"{unfused_ms:.3f} ms", flush=True)
+          f"(eager, then captured) {unfused_ms:.3f} ms", flush=True)
     if profile_path:
         write_profile(profile_path, "a", "3 node training steps",
                       lambda: trainer.run_steps(graphs[:3]))
@@ -1553,15 +1630,22 @@ def epoch_times(run_dir) -> list:
 
 
 def host_loop_ms(input_dir) -> tuple:
-    """Host ms a batch of ``pack_graphs`` and of ``attach_plans`` on the
-    CLI's batches (36 sectors, the CLI's bucket), mean of 3 each."""
+    """Host ms a batch of ``pack_graphs``, of ``attach_plans`` building
+    the batch's plans, and of ``attach_plans`` composing them from the
+    per-graph plans and padding them to the CLI's capacity (``PlanSetup``),
+    on the CLI's batches (36 sectors, the CLI's bucket), mean of 3 each;
+    and the last batch with its composed, padded plans, checked equal to
+    the built ones."""
     from gnn_fpga_tpu_torch.cli import train
     from gnn_fpga_tpu_torch.core import batching
     from gnn_fpga_tpu_torch.core import graph as G
 
     graphs, _ = train.load_graph_files(input_dir, CLI_SECTORS)
     spec = batching.choose_bucket(graphs, edge_multiple=256)
-    pack, plans = [], []
+    t = time.perf_counter()
+    setup = train.PlanSetup(graphs, spec, CLI_BATCH)
+    setup_ms = (time.perf_counter() - t) * 1e3
+    pack, plans, composed = [], [], []
     for b in range(3):
         chunk = graphs[b * CLI_BATCH:(b + 1) * CLI_BATCH]
         t = time.perf_counter()
@@ -1569,9 +1653,19 @@ def host_loop_ms(input_dir) -> tuple:
                           n_edge=spec.n_edge * CLI_BATCH)
         pack.append((time.perf_counter() - t) * 1e3)
         t = time.perf_counter()
-        G.attach_plans(g)
+        built = G.attach_plans(g)
         plans.append((time.perf_counter() - t) * 1e3)
-    return sum(pack) / 3, sum(plans) / 3, g
+        per_graph = setup.plans[b * CLI_BATCH:(b + 1) * CLI_BATCH]
+        t = time.perf_counter()
+        gc = G.attach_plans(g, per_graph, setup.capacity)
+        composed.append((time.perf_counter() - t) * 1e3)
+        unpadded = G.attach_plans(g, per_graph).plans
+        if not (unpadded.items.n_recv == built.plans.items.n_recv
+                and all(torch.equal(x, y) for x, y in zip(
+                    unpadded.tensors(), built.plans.tensors()))):
+            fail("cli: composed plans differ from the built ones")
+    mean = lambda xs: sum(xs) / len(xs)
+    return mean(pack), mean(plans), mean(composed), setup_ms, gc
 
 
 def phase_cli(device) -> dict:
@@ -1711,17 +1805,22 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
                        "--n-epochs", str(CLI_TIMING_EPOCHS)]
     steps = CLI_SECTORS // CLI_BATCH
     step_ms = {2: [], 0: []}
+    first_ms = {2: [], 0: []}
     for i, prefetch in enumerate((2, 0, 0, 2)):     # in turns
         out = os.path.join(runs, f"timing{i}")
         train.main(timing + ["--prefetch", str(prefetch), "--output-dir",
                              out])
-        # epoch 0 takes the first batch's build and the warm-up
-        step_ms[prefetch] += [t / steps * 1e3 for t in epoch_times(out)[1:]]
-    pack_ms, plans_ms, g = host_loop_ms(data)
+        # epoch 0 takes the first batch's build, its eager step and the
+        # capture
+        times = epoch_times(out)
+        first_ms[prefetch].append(times[0] / steps * 1e3)
+        step_ms[prefetch] += [t / steps * 1e3 for t in times[1:]]
+    pack_ms, plans_ms, compose_ms, setup_ms, g = host_loop_ms(data)
     out = os.path.join(runs, "profiled")
+    # two epochs, the second (all replays) read
     wall, busy = profiled(lambda: train.main(
-        timing[:-1] + ["1", "--output-dir", out]))
-    epoch_ms = epoch_times(out)[0] * 1e3
+        timing[:-1] + ["2", "--output-dir", out]))
+    epoch_ms = sum(epoch_times(out)) * 1e3
 
     cfg = mpnn.SegmentClassifierConfig(
         input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
@@ -1729,35 +1828,61 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
     trainer = Trainer(mpnn.init_segment_classifier(
         cfg, torch.Generator().manual_seed(0), device=device),
         TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT))
-    batch = G.attach_plans(g).to(device)
-    trainer.run_steps([batch, batch])                        # warm-up
+    batch = g.to(device)
+    trainer.run_steps([batch, batch])              # eager, then captured
     run_ms = []
     for _ in range(8):
         t = time.perf_counter()
         trainer.run_steps([batch])
         run_ms.append((time.perf_counter() - t) * 1e3)
+    # the replayed step's device time (profiled replays) and its wall time
+    # with the profiler off (replays back to back, one readback)
+    _, dev_busy = profiled(lambda: trainer.run_steps([batch] * 5))
+    t = time.perf_counter()
+    trainer.run_steps([batch] * 20)
+    replay_ms = (time.perf_counter() - t) * 1e3 / 20
+    step_dev_ms = dev_busy / 5
     name = card()
     mean = lambda xs: sum(xs) / len(xs)
-    print(f"  [{name}] cli fused bf16 step (epoch wall / {steps} steps, "
-          f"epochs 1-{CLI_TIMING_EPOCHS - 1} of two runs each): "
+    print(f"  [{name}] cli fused bf16 step, captured (epoch wall / {steps} "
+          f"steps, epochs 1-{CLI_TIMING_EPOCHS - 1} of two runs each): "
           f"--prefetch 2 {mean(step_ms[2]):.3f} ms "
-          f"({' '.join(f'{x:.3f}' for x in step_ms[2])}), --prefetch 0 "
-          f"{mean(step_ms[0]):.3f} ms "
-          f"({' '.join(f'{x:.3f}' for x in step_ms[0])})", flush=True)
-    print(f"  [{name}] run_steps fused bf16 step on one pre-built batch of "
-          f"{batch.n_edge} edges: {mean(run_ms):.3f} ms (min "
-          f"{min(run_ms):.3f}, max {max(run_ms):.3f}, 8 steps); host loop "
-          f"= cli step - run_steps step: {mean(step_ms[2]) - mean(run_ms):.3f}"
-          f" ms with prefetch, {mean(step_ms[0]) - mean(run_ms):.3f} ms "
-          f"without", flush=True)
+          f"({' '.join(f'{x:.3f}' for x in step_ms[2])}; before: "
+          f"{BEFORE['prefetch 2']}), --prefetch 0 {mean(step_ms[0]):.3f} ms "
+          f"({' '.join(f'{x:.3f}' for x in step_ms[0])}; before: "
+          f"{BEFORE['prefetch 0']}); epoch 0, whose first step runs eagerly "
+          f"and is captured: --prefetch 2 "
+          f"{' '.join(f'{x:.3f}' for x in first_ms[2])}, --prefetch 0 "
+          f"{' '.join(f'{x:.3f}' for x in first_ms[0])} ms/step",
+          flush=True)
+    print(f"  [{name}] run_steps fused bf16 step, replayed, on one pre-built "
+          f"batch of {batch.n_edge} edges: {mean(run_ms):.3f} ms (min "
+          f"{min(run_ms):.3f}, max {max(run_ms):.3f}, 8 steps of one "
+          f"readback each; before: {BEFORE['run_steps']}); 20 replays with one "
+          f"readback: {replay_ms:.3f} ms/step; host loop = cli step - "
+          f"run_steps step: {mean(step_ms[2]) - mean(run_ms):.3f} ms with "
+          f"prefetch, {mean(step_ms[0]) - mean(run_ms):.3f} ms without",
+          flush=True)
     print(f"  [{name}] host time a batch of {CLI_BATCH} sectors: pack_graphs "
-          f"{pack_ms:.3f} ms, attach_plans {plans_ms:.3f} ms", flush=True)
-    print(f"  [{name}] one cli epoch ({steps} steps) under torch.profiler: "
-          f"epoch {epoch_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({busy / epoch_ms:.1%} of the epoch; the whole CLI call "
-          f"{wall:.3f} ms)", flush=True)
+          f"{pack_ms:.3f} ms (before: {BEFORE['pack_graphs']}), attach_plans "
+          f"building the plans {plans_ms:.3f} ms (before: "
+          f"{BEFORE['attach_plans']}), composing and padding them "
+          f"{compose_ms:.3f} ms; the per-graph plans of the "
+          f"{CLI_SECTORS} sectors built once in {setup_ms:.3f} ms",
+          flush=True)
+    print(f"  [{name}] replayed fused bf16 step on the CLI batch: device "
+          f"time {step_dev_ms:.3f} ms (torch.profiler over 5 replays), wall "
+          f"{replay_ms:.3f} ms with the profiler off: device idle "
+          f"{1 - step_dev_ms / replay_ms:.1%} (before: {BEFORE['idle']})",
+          flush=True)
+    print(f"  [{name}] two cli epochs ({2 * steps} steps) under "
+          f"torch.profiler: epochs {epoch_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / epoch_ms:.1%} of the epochs; before: "
+          f"{BEFORE['busy']}; the whole CLI call {wall:.3f} ms)", flush=True)
     print(f"  [{name}] infer --benchmark (dense route, f32, one sector "
-          f"padded): {infer_latency * 1e6:.1f} us/graph", flush=True)
+          f"padded, captured forward replayed): "
+          f"{infer_latency * 1e6:.1f} us/graph (before: {BEFORE['infer']})",
+          flush=True)
 
 
 def phase_gcn(device) -> dict:
@@ -1837,6 +1962,176 @@ def phase_gcn(device) -> dict:
     return spmm.launch_counts()
 
 
+def padded_kernel_runs(g, gen) -> dict:
+    """The plan-reading kernels (#1-#5, #7, and sddmm, sddmm_dual) and
+    gather_pair (#6) on ``g``'s topology with ``plans``, in f32 and bf16,
+    on tables from ``gen``: name -> a function of the plans giving the
+    kernel's outputs."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    dev = g.x.device
+    d, hdim = HIDDEN + INPUT_DIM, HIDDEN
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    tabs = dict(pa=rnd(N_NODE, hdim), pb=rnd(N_NODE, hdim), h=rnd(N_NODE, d),
+                w2=rnd(hdim) * 0.25, b1=rnd(hdim), b2=rnd(1),
+                g_mi=rnd(N_NODE, d), g_mo=rnd(N_NODE, d), g=rnd(N_EDGE, hdim))
+    w = torch.rand(N_EDGE, generator=gen).to(dev) * g.edge_mask
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        t = {k: v.to(dt) for k, v in tabs.items()}
+        tag = str(dt).replace("torch.", "")
+
+        def it(p, t=t):
+            ems = spmm.sort_edge_weights(g.edge_mask, p.recv)
+            args = [t["pa"], t["pb"], t["h"], ems, t["w2"], t["b1"], t["b2"]]
+            mi, mo, sig = spmm.iteration_pair_fwd(*args, p)
+            return (mi, mo, sig) + spmm.iteration_pair_bwd(
+                *args, t["g_mi"], t["g_mo"], p, sig)
+
+        runs.update({
+            f"iteration_pair and its bwd {tag}": it,
+            f"aggregate_pair {tag}": lambda p, t=t: spmm.aggregate_pair(
+                t["h"], w, p),
+            f"aggregate_pair_bwd {tag}": lambda p, t=t:
+                spmm.aggregate_pair_bwd(t["h"], w, t["g_mi"], t["g_mo"], p),
+            f"gather_pair {tag}": lambda p, t=t: (spmm.gather_pair(
+                t["pa"], t["pb"], g.senders, g.receivers, p),),
+            f"gather_pair_bwd {tag}": lambda p, t=t: spmm.gather_pair_bwd(
+                t["g"], p),
+            f"spmm {tag}": lambda p, t=t: (spmm.spmm_raw(t["h"], w, p.recv),
+                                           spmm.spmm_raw(t["h"], w, p.send)),
+            f"sddmm, sddmm_dual {tag}": lambda p, t=t: (
+                spmm.sddmm(t["g_mi"], t["h"], p.recv),
+                spmm.sddmm_dual(t["g_mi"], t["h"], t["g_mo"], t["h"],
+                                p.recv)),
+        })
+    return runs
+
+
+def phase_capture(device, graphs, unpadded) -> None:
+    """The captured paths against the eager ones: CAPTURE_STEPS train
+    steps from one init on the fused, unfused and blocked routes (losses
+    and weights at CAPTURE_RTOL); the served forward and infer's forward
+    bit for bit; the kernels on ``unpadded[0]``'s plans padded to the
+    worst case of the fullevent shape bit for bit against the unpadded
+    plans, and timed; a batch of another signature raising."""
+    from gnn_fpga_tpu_torch.cli import infer
+    from gnn_fpga_tpu_torch.core import capture
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    print(f"capture: captured against eager, {CAPTURE_STEPS} steps from one "
+          f"init", flush=True)
+    tcfg = TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
+    sectors = [make_sector_batch(seed, device) for seed in range(N_REQUESTS)]
+    sectors = [b for b in sectors
+               if capture.signature(b) == capture.signature(sectors[0])]
+    for route, kw, batches in (
+            ("fused", dict(aggregation="pallas"), graphs),
+            ("unfused", dict(aggregation="pallas", fused_iteration=False),
+             graphs),
+            ("blocked", dict(aggregation="blocked"), sectors)):
+        batches = [batches[i % len(batches)] for i in range(CAPTURE_STEPS)]
+        base = mpnn.init_segment_classifier(
+            mpnn.SegmentClassifierConfig(
+                input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+                compute_dtype=torch.bfloat16, **kw),
+            torch.Generator().manual_seed(5), device=device)
+        got = {}
+        for on in (True, False):
+            tr = Trainer(variant_of(base, device), tcfg, capture=on)
+            got[on] = (torch.from_numpy(tr.run_steps(batches)),
+                       torch.cat([p.detach().reshape(-1)
+                                  for p in tr.model.parameters()]))
+            if on and len(tr._captured) != 1:
+                fail(f"capture: the {route} steps took "
+                     f"{len(tr._captured)} captures, expected 1")
+        print(f"  {route} losses, captured: "
+              f"{' '.join(f'{x:.6f}' for x in got[True][0].tolist())}; "
+              f"eager: {' '.join(f'{x:.6f}' for x in got[False][0].tolist())}",
+              flush=True)
+        compare(f"{route} losses, captured vs eager", got[True][0],
+                got[False][0], CAPTURE_RTOL, 0.0)
+        compare(f"{route} weights after {CAPTURE_STEPS} steps, captured vs "
+                f"eager", got[True][1], got[False][1], CAPTURE_RTOL,
+                CAPTURE_ATOL)
+
+    # the served forward and infer's forward, captured against eager
+    model = mpnn.init_segment_classifier(
+        mpnn.SegmentClassifierConfig(
+            input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+            compute_dtype=torch.bfloat16, aggregation="pallas"),
+        torch.Generator().manual_seed(6), device=device)
+    call = captured_probs(model, device)
+    with torch.no_grad():
+        call(graphs[0])
+        for g in graphs[1:3]:
+            exact("served forward, captured vs eager", call(g).clone(),
+                  torch.sigmoid(model(g)))
+        other = without_pad_edges(unpadded[0])
+        try:
+            call(other)
+        except ValueError as err:
+            print(f"  a batch of another signature ({other.n_edge} edges) "
+                  f"raises: {err}", flush=True)
+        else:
+            fail("capture: a batch of another signature was accepted")
+    dense = mpnn.init_segment_classifier(
+        mpnn.SegmentClassifierConfig(input_dim=INPUT_DIM, hidden_dim=HIDDEN,
+                                     n_iters=N_ITERS),
+        torch.Generator().manual_seed(7), device=device)
+    sectors = G.unbatch_graphs(make_sector_batch(0, "cpu").replace(
+        blocks=None))
+    fwd = infer.captured_forward(dense, device)
+    fwd(sectors[0])
+    with torch.no_grad():
+        for g in sectors[1:3]:
+            exact("infer's forward, captured vs eager", fwd(g).clone(),
+                  mpnn.segment_classifier(dense, g.to(device)))
+    _, busy = profiled(lambda: [fwd.replay() for _ in range(10)])
+    t = time.perf_counter()
+    for _ in range(100):
+        fwd.replay()
+    torch.cuda.synchronize()
+    print(f"  [{card()}] infer's forward (dense route, f32, one sector): "
+          f"device time {busy / 10 * 1e3:.1f} us (torch.profiler over 10 "
+          f"replays), {(time.perf_counter() - t) * 1e4:.1f} us a replay "
+          f"over 100 with the profiler off", flush=True)
+
+    # the kernels on plans padded to the worst case of the shape against
+    # the unpadded plans
+    plans = unpadded[0].plans
+    padded = spmm.pad_plans(plans, spmm.worst_case_capacity(N_NODE, N_EDGE))
+    it, real = padded.items, spmm.plan_counts(plans)
+    print(f"  kernels on plans padded to {it.n_recv} + {it.n_item - it.n_recv}"
+          f" items, {it.n_split} splits, {len(padded.recv.long_seg)} + "
+          f"{len(padded.send.long_seg)} long segments (the worst case of "
+          f"V = {N_NODE}, E = {N_EDGE}) against the unpadded plans "
+          f"({real.recv_items} + {real.send_items} items, {real.splits} "
+          f"splits, {real.recv_long} + {real.send_long} long segments):",
+          flush=True)
+    runs = padded_kernel_runs(unpadded[0], torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        for name, run in runs.items():
+            want, got = run(plans), run(padded)
+            torch.cuda.synchronize()
+            same = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(got, want))
+            print(f"  {name} on padded plans: {len(got)} outputs bit for "
+                  f"bit {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                fail(f"capture: {name} on padded plans differs")
+        for name in ("iteration_pair and its bwd bfloat16",
+                     "aggregate_pair_bwd bfloat16"):
+            ts = {label: time_ms(lambda p=p: runs[name](p))
+                  for label, p in (("unpadded", plans), ("padded", padded))}
+            print(f"  {name}: "
+                  + ", ".join(f"{k} {fmt_ms(t)} ms" for k, t in ts.items()),
+                  flush=True)
+
+
 def profiled(run, table_to=None) -> tuple:
     """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler;
     ``table_to``: ``(path, what)`` appends the profiler's table to
@@ -1900,9 +2195,13 @@ def main():
             MEASUREMENTS[name](g)
         return
     t0 = time.perf_counter()
-    graphs = [make_request(seed, device) for seed in range(N_REQUESTS)]
+    unpadded = [make_request(seed, device) for seed in range(N_REQUESTS)]
+    graphs = pad_to_covering(unpadded)
+    it = graphs[0].plans.items
     print(f"graphs: {N_REQUESTS} packed graphs built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s, plans padded to one capacity "
+          f"({it.n_recv} + {it.n_item - it.n_recv} items, {it.n_split} "
+          f"splits, {it.n_slot} slots)", flush=True)
     kernels = phase_kernels(graphs[0])
     print_probe_bounds()
     phase_iteration(graphs[0])
@@ -1914,6 +2213,7 @@ def main():
              phase_unshared(device, graphs, args.profile),
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
+    phase_capture(device, graphs, unpadded)
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
                  launches=sum(path[name] for path in paths),

@@ -5,7 +5,10 @@ The counterpart of ``gnn_fpga_tpu/cli/infer.py``, with its flags plus
 parameter format, written by either package's train CLI), score saved
 graphs, and with ``--benchmark`` time the forward.  Each graph is padded
 to one bucket and scored with ``aggregation="auto"``, which at sector
-scale is the dense route.
+scale is the dense route.  The forward is one captured CUDA graph
+(``core/capture.py``), the counterpart of the JAX CLI's jitted forward:
+each file is copied into its static input buffers and the graph
+replayed; the first file's forward runs eagerly and is captured.
 
 Usage: python -m gnn_fpga_tpu_torch.cli.infer --model ... --input-dir ... \
            [--hidden-dim 4 --n-iters 1]
@@ -23,6 +26,7 @@ import time
 import torch
 
 from gnn_fpga_tpu_torch.core import batching
+from gnn_fpga_tpu_torch.core.capture import CapturedCall
 from gnn_fpga_tpu_torch.core.device import default_device
 from gnn_fpga_tpu_torch.core.graph import load_npz, pad_graph
 from gnn_fpga_tpu_torch.models import mpnn
@@ -60,18 +64,31 @@ def load_model(path: str, input_dim: int, hidden_dim: int, n_iters: int,
     return model
 
 
-def benchmark(model, g, n_rep: int = N_BENCHMARK) -> float:
-    """Seconds per forward of ``g``: one warm-up, then ``n_rep`` forwards
-    ending in a synchronisation on a CUDA device."""
-    sync = (torch.cuda.synchronize if g.x.device.type == "cuda"
-            else lambda: None)
-    with torch.inference_mode():
-        mpnn.segment_classifier(model, g)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(n_rep):
-            mpnn.segment_classifier(model, g)
-        sync()
+def captured_forward(model, device) -> CapturedCall:
+    """The scoring forward ``segment_classifier(model, g)`` as a captured
+    call on ``device``, for graphs padded to one bucket."""
+    def forward(g):
+        with torch.no_grad():
+            return mpnn.segment_classifier(model, g)
+
+    return CapturedCall(forward, device)
+
+
+def benchmark(forward: CapturedCall, g, n_rep: int = N_BENCHMARK) -> float:
+    """Seconds per forward of ``g``: ``g`` loaded into the captured
+    forward and run once as warm-up, then ``n_rep`` replays (eager calls
+    on the CPU) ending in a synchronisation on a CUDA device."""
+    cuda = forward.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    forward(g)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        if forward.captured:
+            forward.replay()
+        else:
+            forward(g)
+    sync()
     return (time.perf_counter() - t0) / n_rep
 
 
@@ -87,22 +104,20 @@ def run(args):
     logging.info("Parameters: %i", mpnn.count_params(model))
 
     bucket = batching.choose_bucket(graphs)
-    padded = [pad_graph(g, bucket.n_node, bucket.n_edge).to(device)
-              for g in graphs]
+    padded = [pad_graph(g, bucket.n_node, bucket.n_edge) for g in graphs]
+    forward = captured_forward(model, device)
     results = []
-    with torch.inference_mode():
-        for path, gp in zip(files, padded):
-            scores = mpnn.segment_classifier(model, gp)
-            em = gp.edge_mask > 0
-            n_edges, mean = int(em.sum()), float(scores[em].mean())
-            results.append({"file": os.path.basename(path),
-                            "n_edges": n_edges, "mean_score": mean})
-            logging.info("%s: %i edges, mean score %.4f", path, n_edges,
-                         mean)
+    for path, gp in zip(files, padded):
+        scores = forward(gp)
+        em = forward.inputs.edge_mask > 0
+        n_edges, mean = int(em.sum()), float(scores[em].mean())
+        results.append({"file": os.path.basename(path),
+                        "n_edges": n_edges, "mean_score": mean})
+        logging.info("%s: %i edges, mean score %.4f", path, n_edges, mean)
 
     latency = None
     if args.benchmark:
-        latency = benchmark(model, padded[0])
+        latency = benchmark(forward, padded[0])
         logging.info("Latency: %.1f us/graph", latency * 1e6)
 
     if args.output:

@@ -9,8 +9,13 @@ package's infer CLI reads it) and ``losses.npz``.
 - ``--aggregation blocked``: per-layer-pair blocks of the batched graphs
   (``ops/blocked.py``); needs per-node ``layer`` arrays in the NPZ graphs.
 - ``--aggregation pallas``: batches packed into one flat graph with the
-  CUDA kernels' plans attached (``ops/cuda/spmm.py``), built on the host
-  as each batch is made.
+  CUDA kernels' plans attached (``ops/cuda/spmm.py``): each graph's plans
+  are built once when the dataset is loaded, and each batch's are
+  composed from them and padded to capacities set for the bucket, so
+  that every batch has one static shape (:class:`PlanSetup`).
+- On the card the train step, the validation loss and the test
+  predictions run as captured CUDA graphs (``train/trainer.py``), one
+  for each batch shape; the first batch of a shape runs eagerly.
 - ``--bf16``: bf16 compute over f32 master weights.
 - ``--prefetch N``: batches built and copied to the card by a background
   thread, N ahead of the step (``core/prefetch.py``).
@@ -41,6 +46,7 @@ from gnn_fpga_tpu_torch.core.graph import (attach_plans,
 from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
 from gnn_fpga_tpu_torch.models import mpnn
 from gnn_fpga_tpu_torch.ops import blocked as blk
+from gnn_fpga_tpu_torch.ops.cuda import spmm
 from gnn_fpga_tpu_torch.train.trainer import Trainer, TrainConfig
 from gnn_fpga_tpu_torch.utils.serialization import (save_params_npz,
                                                     to_jax_params)
@@ -157,6 +163,35 @@ class BlockedSetup:
         return transform
 
 
+class PlanSetup:
+    """The fused kernels' plans of the pallas route, built once per graph
+    of the dataset, and the static capacities that every batch's composed
+    plans are padded to (``ops/cuda/spmm.py::batch_capacity``: the
+    ``batch_size`` largest per-graph counts and the pad node's), as
+    :class:`BlockedSetup` pins the blocked route's.  Graphs are named by
+    their position in the dataset."""
+
+    def __init__(self, graphs, bucket: batching.BucketSpec,
+                 batch_size: int):
+        self.plans = [spmm.build_agg_plans(g.senders.numpy(),
+                                           g.receivers.numpy(), g.n_node)
+                      for g in graphs]
+        self.capacity = spmm.batch_capacity(
+            self.plans, batch_size, bucket.n_node * batch_size,
+            bucket.n_edge * batch_size)
+
+    def transform_for(self, positions):
+        """The batch transform of a split whose ``i``-th graph is graph
+        ``positions[i]`` of the dataset."""
+        plans = [self.plans[p] for p in positions]
+
+        def transform(batch, idx):
+            return attach_plans(batch, [plans[i] for i in idx],
+                                self.capacity)
+
+        return transform
+
+
 def _on_device(gen, device):
     for batch in gen:
         yield batch.to(device)
@@ -217,12 +252,13 @@ def main(argv=None):
                      "block_n %i", blocked_setup.n_layers, args.group,
                      blocked_setup.block_e, blocked_setup.block_n)
 
+    plan_setup = PlanSetup(graphs, bucket, bs) if packed else None
+    if plan_setup is not None:
+        logging.info("Plan capacity: %s", plan_setup.capacity)
+
     def transform_for(positions):
-        if blocked_setup is not None:
-            return blocked_setup.transform_for(positions)
-        if packed:
-            return lambda batch, idx: attach_plans(batch)
-        return None
+        setup = blocked_setup or plan_setup
+        return None if setup is None else setup.transform_for(positions)
 
     def make_gen(positions, shuffle, seed=0):
         return batching.batch_generator(

@@ -240,17 +240,38 @@ def layer_offsets_from_layers(layers,
     return off
 
 
-def attach_plans(g: Graph) -> Graph:
-    """Attach the sorted-edge plans of the CUDA kernels
-    (:func:`gnn_fpga_tpu_torch.ops.cuda.spmm.build_agg_plans`) to a single
-    packed graph, enabling ``aggregation="pallas"`` in the models.  Plans
-    are built host-side once per topology and follow the graph's device.
+def attach_plans(g: Graph, per_graph_plans=None, capacity=None) -> Graph:
+    """Attach the sorted-edge plans of the CUDA kernels to a single packed
+    graph, enabling ``aggregation="pallas"`` in the models; the plans
+    follow the graph's device.
+
+    Without ``per_graph_plans`` they are built host-side from the graph's
+    edges (:func:`gnn_fpga_tpu_torch.ops.cuda.spmm.build_agg_plans`).
+    With them (the plans of the graphs :func:`pack_graphs` packed into
+    ``g``, in order, each built once when the dataset is loaded) they are
+    composed (:func:`~gnn_fpga_tpu_torch.ops.cuda.spmm.compose_agg_plans`),
+    which gives the same plans without sorting the batch's edges again.
+    With ``capacity`` (a :class:`~gnn_fpga_tpu_torch.ops.cuda.spmm.
+    PlanCapacity`) they are padded to it
+    (:func:`~gnn_fpga_tpu_torch.ops.cuda.spmm.pad_plans`), so that every
+    batch of a bucket has one static shape and one captured step serves
+    them all; plans that exceed it raise ``ValueError``.
     """
-    from gnn_fpga_tpu_torch.ops.cuda.spmm import build_agg_plans
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
 
     if g.x.ndim != 2:
         raise ValueError("plans only apply to single packed graphs")
-    plans = build_agg_plans(_np(g.senders), _np(g.receivers), g.n_node)
+    if per_graph_plans is None:
+        plans = spmm.build_agg_plans(_np(g.senders), _np(g.receivers),
+                                     g.n_node)
+    else:
+        nodes = np.array([p.recv.n_node for p in per_graph_plans], np.int64)
+        edges = np.array([p.recv.n_edge for p in per_graph_plans], np.int64)
+        plans = spmm.compose_agg_plans(
+            per_graph_plans, np.cumsum(nodes) - nodes,
+            np.cumsum(edges) - edges, g.n_node, g.n_edge)
+    if capacity is not None:
+        plans = spmm.pad_plans(plans, capacity)
     return g.replace(plans=plans.to(g.x.device))
 
 

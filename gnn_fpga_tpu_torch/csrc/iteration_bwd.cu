@@ -60,6 +60,12 @@
 // pass's tanh taken out shortened the walks (PERF.md, PR 5): what bounds
 // them is still open.
 //
+// Pad items and splits (node -1) of plans padded to static capacities
+// (ops/cuda/spmm.py::pad_plans) come after the real ones and do nothing:
+// a send-pass warp skips them, so with the same send_blocks every warp
+// sums the same items as on the unpadded plans, and the outputs agree bit
+// for bit.
+//
 // No atomics: results are identical from run to run.  Types as the
 // forward: T tables and outputs, f32 em, e, dl and every sum; tanhf and
 // expf are the accurate versions.
@@ -193,6 +199,7 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
   const int slot = slot_h + 2 * slot_d;
   char* buf = smem + static_cast<long>(wib) * chunk * slot;
   const int4 it = items[i];            // beg, end, node, slot
+  if (it.z < 0) return;                // a pad item of padded plans
   const long n = it.z;
   // the rows every edge of the item uses, kept as stored (bf16 pairs
   // take half the registers of f32 ones) and widened where used
@@ -328,6 +335,7 @@ send_kernel(int n_send, int n_recv, int row_h, int row_d, int log_lanes,
   zero(db1);
   for (int i = w; i < n_send; i += n_warps) {
     const int4 it = items[n_recv + i];   // beg, end, node, slot
+    if (it.z < 0) continue;              // a pad item of padded plans
     const long n = it.z;
     Vec<T, NH> own[kI];
     load_row_items(own, pa, n, row_h, ln);
@@ -473,6 +481,7 @@ finish_kernel(int n_rows, int hdim, int d, const float* __restrict__ partial,
     return;
   }
   const int4 sp = splits[blockIdx.x - n_cols];
+  if (sp.x < 0) return;                // a pad split of padded plans
   const long n = sp.x;
   for (int col = threadIdx.x; col < 2 * hdim + d; col += kThreads) {
     // dh by default, then dpb and dpa
@@ -639,7 +648,8 @@ extern "C" {
 // (gnn_iteration_pair_fwd), both in the recv plan's order; send_in_recv:
 // [E] position in the recv order of each send-sorted edge; recv_oth:
 // senders in recv order; send_oth: receivers in send order.  items
-// [n_item, 4], splits [n_split, 4]: IterItems.  Scratch: e_sorted [E] f32
+// [n_item, 4], splits [n_split, 4]: IterItems, padded or not (entries of
+// node -1 are skipped).  Scratch: e_sorted [E] f32
 // and dl [E, 2] f32 (in recv order); dh_recv [V, d] f32; param_partial
 // [2 hdim + 1, 8 send_blocks] f32; hpart [n_slot, hdim] and dpart
 // [n_slot, d] f32.

@@ -37,6 +37,10 @@
 // 3. combine (only when a node is split): one warp per split node sums its
 //    items' partial rows in item order and writes mi and mo.
 //
+// Plans padded to static capacities (ops/cuda/spmm.py::pad_plans) carry
+// pad items and splits of node -1 after the real ones; their warps return
+// at once, so a padded launch writes what the unpadded one writes.
+//
 // No atomics: every output is written by one warp in a fixed order, so
 // results are identical from run to run.  Types: T = float or
 // __nv_bfloat16 for the tables, f32 for em, the weights and every sum;
@@ -241,6 +245,7 @@ walk_kernel(int n_item, int n_recv, int row, const Vec<T, N>* __restrict__ h,
   const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= n_item) return;
   const int4 it = items[i];            // beg, end, node, slot
+  if (it.z < 0) return;                // a pad item of padded plans
   const bool by_send = i >= n_recv;
   float acc[kC][N];
 #pragma unroll
@@ -264,6 +269,7 @@ combine_kernel(int n_split, int d, const int4* __restrict__ splits,
   const int k = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (k >= n_split) return;
   const int4 sp = splits[k];
+  if (sp.x < 0) return;                // a pad split of padded plans
   for (int c = lane; c < d; c += kWarp) {
     float a = 0.f, b = 0.f;
     for (int s = sp.y; s < sp.z; ++s)
@@ -354,7 +360,7 @@ extern "C" {
 // send_in_recv: [E] position in the recv order of each send-sorted edge;
 // recv_oth / recv_seg: senders / receivers in recv order; send_oth:
 // receivers in send order.  items [n_item, 4], splits [n_split, 4]:
-// IterItems.  Outputs besides mi, mo: e_sorted [E] f32 (the weights the
+// IterItems, padded or not (entries of node -1 are skipped).  Outputs besides mi, mo: e_sorted [E] f32 (the weights the
 // walk sums with) and sig_sorted [E] f32 (the scores, which the backward
 // takes); scratch: partial [n_slot, d] f32.
 int gnn_iteration_pair_fwd(int dtype, int n_edge, int d, int hdim, int vec_h,

@@ -8,7 +8,9 @@
 // each direction) is instead walked by the eight warps of a block of its
 // own, warp w taking chunks w, w + 8, ...; those blocks come first in the
 // grid, so that no long walk is left for the grid's last wave, and the
-// plan lists their nodes (ops/cuda/spmm.py::EdgePlan.long_seg).
+// plan lists their nodes (ops/cuda/spmm.py::EdgePlan.long_seg); plans
+// padded to a static capacity list pad entries of node -1 after them,
+// whose blocks return at once.
 //
 // A row of `width` elements of T is read as `row` items of N elements, an
 // item being item_bytes = N * sizeof(T) bytes, a power of two from
@@ -195,6 +197,7 @@ segment_rows_kernel(int n_node, int sides, int row, int log_lanes,
   } else {
     by_send = static_cast<int>(blockIdx.x) >= n_recv_long;
     n = by_send ? send_long[blockIdx.x - n_recv_long] : recv_long[blockIdx.x];
+    if (n < 0) return;   // a pad entry of padded plans: the whole block
   }
   const Side side = by_send ? send : recv;
   const int beg = side.seg_ptr[n], end = side.seg_ptr[n + 1];

@@ -176,6 +176,7 @@ agg_bwd_kernel(int n_node, int row, int log_lanes,
     n = static_cast<int>(blockIdx.x) < n_recv_long
             ? recv_long[blockIdx.x]
             : send_long[blockIdx.x - n_recv_long];
+    if (n < 0) return;   // a pad entry of padded plans: the whole block
   }
   const int rb = recv.seg_ptr[n], re = recv.seg_ptr[n + 1];
   const int sb = send.seg_ptr[n], se = send.seg_ptr[n + 1];

@@ -92,7 +92,7 @@ __device__ __forceinline__ void sddmm_rows(
   const long n = whole ? static_cast<long>(blockIdx.x - n_long) *
                                  kWarpsPerBlock + (threadIdx.x / kWarp)
                        : long_seg[blockIdx.x];
-  if (n >= n_node) return;
+  if (n < 0 || n >= n_node) return;   // n < 0: a pad entry of padded plans
   const int beg = side.seg_ptr[n], end = side.seg_ptr[n + 1];
   if (whole && end - beg > kLongSegment) return;   // its block takes it
   // as stored: bf16 pairs take half the registers

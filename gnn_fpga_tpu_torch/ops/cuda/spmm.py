@@ -116,6 +116,12 @@ class IterItems(TensorFields):
                       [slot_beg, slot_mid), its send items' [slot_mid,
                       slot_end), each in item order; a combine pass sums
                       them in that order.
+
+    Plans padded to a :class:`PlanCapacity` (:func:`pad_plans`) carry
+    no-op entries after each direction's real items and after the real
+    splits: node -1, which every kernel skips.  ``n_recv`` and ``n_slot``
+    are then the capacity's, so a batch's launches do not depend on its
+    topology.
     """
 
     items: torch.Tensor
@@ -244,6 +250,291 @@ def build_agg_plans(senders, receivers, n_node: int) -> AggPlans:
     return AggPlans(recv=recv, send=send, send_in_recv=send_in_recv,
                     items=build_iter_items(recv.seg_ptr.numpy(),
                                            send.seg_ptr.numpy()))
+
+
+# ---------------------------------------------------------------------------
+# Plans composed per batch and padded to static capacities
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PlanCapacity:
+    """The sizes a plan's variable-length lists are padded to
+    (:func:`pad_plans`): work items in each direction, split nodes, f32
+    partial-row slots and long segments in each direction.  With the node
+    and edge counts, which a bucket fixes, they set every launch of the
+    kernels, so one CUDA graph serves every batch of a bucket."""
+
+    recv_items: int
+    send_items: int
+    splits: int
+    slots: int
+    recv_long: int
+    send_long: int
+
+    def covers(self, other: "PlanCapacity") -> bool:
+        return all(getattr(self, f.name) >= getattr(other, f.name)
+                   for f in dataclasses.fields(self))
+
+    @staticmethod
+    def covering(*plans: AggPlans) -> "PlanCapacity":
+        """The least capacity that holds each of ``plans``."""
+        counts = [plan_counts(p) for p in plans]
+        return PlanCapacity(**{f.name: max(getattr(c, f.name)
+                                           for c in counts)
+                               for f in dataclasses.fields(PlanCapacity)})
+
+
+def _host(t) -> np.ndarray:
+    if t.device.type == "cpu" and not t.requires_grad:
+        return t.numpy()
+    return t.detach().cpu().numpy()
+
+
+def plan_counts(plans: AggPlans) -> PlanCapacity:
+    """The entries a plan uses: its real items, splits, slots and long
+    segments (pad entries, node -1, not counted)."""
+    it = plans.items
+    node = _host(it.items[:, 2])
+    splits = _host(it.splits)
+    real = splits[splits[:, 0] >= 0]
+    return PlanCapacity(
+        recv_items=int((node[:it.n_recv] >= 0).sum()),
+        send_items=int((node[it.n_recv:] >= 0).sum()),
+        splits=len(real), slots=int(real[:, 3].max()) if len(real) else 0,
+        recv_long=int((_host(plans.recv.long_seg) >= 0).sum()),
+        send_long=int((_host(plans.send.long_seg) >= 0).sum()))
+
+
+def worst_case_capacity(n_node: int, n_edge: int) -> PlanCapacity:
+    """A capacity that holds the plans of every graph of ``n_node`` nodes
+    and ``n_edge`` edges: a node has ``max(1, ceil(deg / ITEM_EDGES))``
+    items a direction, so a direction at most ``V + ceil(E / ITEM_EDGES)``;
+    a split node has more than ``ITEM_EDGES`` edges one way, so there are
+    at most ``min(V, 2E / (ITEM_EDGES + 1))``, with at most two slots each
+    beyond one per ``ITEM_EDGES`` edges a direction; a long segment holds
+    more than ``LONG_SEGMENT`` edges."""
+    per_edges = -(-n_edge // ITEM_EDGES)
+    splits = min(n_node, 2 * n_edge // (ITEM_EDGES + 1))
+    n_long = min(n_node, n_edge // (LONG_SEGMENT + 1))
+    return PlanCapacity(recv_items=n_node + per_edges,
+                        send_items=n_node + per_edges, splits=splits,
+                        slots=2 * splits + 2 * per_edges,
+                        recv_long=n_long, send_long=n_long)
+
+
+def batch_capacity(per_graph_plans, batch_size: int, n_node: int,
+                   n_edge: int) -> PlanCapacity:
+    """A capacity that holds the plans of every batch of ``batch_size`` of
+    the graphs whose plans are ``per_graph_plans``, packed into ``n_node``
+    nodes and ``n_edge`` edges (the pad edges on the one pad node after
+    the real nodes, as :func:`~gnn_fpga_tpu_torch.core.graph.pack_graphs`
+    puts them).
+
+    A batch's items in a direction are ``n_node - 1 + sum(items - nodes)
+    + max(1, ceil(pad / ITEM_EDGES))`` over its graphs, with ``pad =
+    n_edge - sum(edges)``; since a graph's items beyond one a node are at
+    most ``edges / ITEM_EDGES``, the bound takes the larger of the case
+    without pad edges (the ``batch_size`` largest ``items - nodes``, one
+    pad item) and the case with them (the largest ``items - nodes -
+    edges / ITEM_EDGES``, plus ``(n_edge + ITEM_EDGES - 1) / ITEM_EDGES``);
+    the slots likewise, the pad node's two a pad item when it is split.
+    Splits and long segments: the ``batch_size`` largest counts, plus the
+    pad node's at the most pad edges a batch can have."""
+    rows = np.array([[p.recv.n_node, p.recv.n_edge,
+                      *dataclasses.astuple(plan_counts(p))]
+                     for p in per_graph_plans], np.int64)
+    if len(rows) < batch_size:
+        raise ValueError("fewer graphs than batch_size")
+    top = lambda col: int(np.sort(col)[::-1][:batch_size].sum())
+    nodes, edges = rows[:, 0], rows[:, 1]
+    if top(nodes) >= n_node or top(edges) > n_edge:
+        raise ValueError(f"a batch of {batch_size} graphs does not fit "
+                         f"{n_node} nodes (one pad node) and {n_edge} edges")
+    max_pad = n_edge - int(np.sort(edges)[:batch_size].sum())
+    k = ITEM_EDGES
+
+    def items(col):
+        extra = col - nodes
+        return n_node - 1 + max(top(extra) + 1,
+                                (top(k * extra - edges) + n_edge + k - 1)
+                                // k)
+
+    slots = top(rows[:, 5])
+    if max_pad > k:
+        slots = max(slots, (top(k * rows[:, 5] - 2 * edges)
+                            + 2 * (n_edge + k - 1)) // k)
+    return PlanCapacity(
+        recv_items=items(rows[:, 2]), send_items=items(rows[:, 3]),
+        splits=top(rows[:, 4]) + int(max_pad > k), slots=slots,
+        recv_long=top(rows[:, 6]) + int(max_pad > LONG_SEGMENT),
+        send_long=top(rows[:, 7]) + int(max_pad > LONG_SEGMENT))
+
+
+# No-op entries of padded plans: an item of node -1 and no edges, a split
+# of node -1 and no slots, a long segment of node -1.
+_PAD_ITEM = (0, 0, -1, -1)
+_PAD_SPLIT = (-1, 0, 0, 0)
+
+
+def _padded(rows: np.ndarray, node: np.ndarray, n: int, fill,
+            what: str) -> np.ndarray:
+    """The real entries of ``rows`` (those whose ``node`` is not negative)
+    followed by entries ``fill`` to ``n`` rows."""
+    k = int(np.count_nonzero(node >= 0))
+    if k > n:
+        raise ValueError(f"plans exceed their capacity: {k} {what}, "
+                         f"capacity {n}")
+    out = np.empty((n,) + rows.shape[1:], np.int32)
+    out[:k] = rows[node >= 0]
+    out[k:] = fill
+    return out
+
+
+def pad_plans(plans: AggPlans, capacity: PlanCapacity) -> AggPlans:
+    """``plans`` with each variable-length list padded to ``capacity`` by
+    no-op entries after its real ones (node -1; :class:`IterItems`): the
+    recv items to ``capacity.recv_items``, the send items after them to
+    ``capacity.send_items``, the splits, and each direction's long
+    segments.  ``n_recv`` and ``n_slot`` become the capacity's.  Real
+    entries keep their order and slots, so every kernel sums as on the
+    unpadded plans.  Plans that do not fit raise ``ValueError``; nothing is
+    ever dropped.  The padding is done on the host; the result lies where
+    ``plans`` lie."""
+    it = plans.items
+    if not capacity.covers(plan_counts(plans)):
+        raise ValueError(f"plans exceed their capacity: they need "
+                         f"{plan_counts(plans)}, capacity {capacity}")
+    dev = it.items.device
+    as_t = lambda a: torch.from_numpy(a).to(dev)
+    items = _host(it.items)
+    recv, send = items[:it.n_recv], items[it.n_recv:]
+    splits = _host(it.splits)
+    items = np.concatenate([
+        _padded(recv, recv[:, 2], capacity.recv_items, _PAD_ITEM,
+                "recv items"),
+        _padded(send, send[:, 2], capacity.send_items, _PAD_ITEM,
+                "send items")])
+    splits = _padded(splits, splits[:, 0], capacity.splits, _PAD_SPLIT,
+                     "splits")
+
+    def long_seg(p, n, what):
+        nodes = _host(p.long_seg)
+        return dataclasses.replace(
+            p, long_seg=as_t(_padded(nodes, nodes, n, -1, what)))
+
+    return dataclasses.replace(
+        plans, recv=long_seg(plans.recv, capacity.recv_long,
+                             "recv long segments"),
+        send=long_seg(plans.send, capacity.send_long, "send long segments"),
+        items=IterItems(items=as_t(items), splits=as_t(splits),
+                        n_recv=capacity.recv_items, n_slot=capacity.slots))
+
+
+def _offset_cat(arrays, offsets, tail) -> np.ndarray:
+    """``concat(arrays) + offsets ++ tail`` as int32: ``offsets`` holds
+    each entry's offset (its graph's, repeated)."""
+    n = len(offsets)
+    out = np.empty(n + len(tail), np.int32)
+    np.concatenate(arrays, out=out[:n])
+    out[:n] += offsets
+    out[n:] = tail
+    return out
+
+
+def compose_agg_plans(per_graph_plans, node_offsets, edge_offsets,
+                      n_node: int, n_edge: int) -> AggPlans:
+    """The plans of a packed batch from its graphs' plans, built once per
+    graph: equal, field for field, to :func:`build_agg_plans` on the graph
+    :func:`~gnn_fpga_tpu_torch.core.graph.pack_graphs` makes of them.
+
+    Graph ``k``'s nodes start at ``node_offsets[k]`` and its edges at
+    ``edge_offsets[k]``, one after the other from 0; the ``n_edge`` -
+    (real edges) pad edges join the one pad node after the real nodes to
+    itself, and the nodes after it have no edges.  So each edge array is
+    the graphs' arrays offset and concatenated, then the pad node's
+    segment; the work items keep :func:`build_iter_items`' order in each
+    direction (every split node's items across the batch, then the
+    others', each part in node order), and split nodes' slots are
+    renumbered in node order.  Host-side (numpy); the plans are CPU
+    tensors."""
+    plans = list(per_graph_plans)
+    noff = np.asarray(node_offsets, np.int64)
+    eoff = np.asarray(edge_offsets, np.int64)
+    nn = np.array([p.recv.n_node for p in plans], np.int64)
+    ne = np.array([p.recv.n_edge for p in plans], np.int64)
+    if (len(noff) != len(plans) or len(eoff) != len(plans)
+            or np.any(noff != np.cumsum(nn) - nn)
+            or np.any(eoff != np.cumsum(ne) - ne)):
+        raise ValueError("the graphs must lie one after the other from "
+                         "node 0 and edge 0, in the order of their plans")
+    real_n, real_e = int(nn.sum()), int(ne.sum())
+    n_pad = n_edge - real_e
+    if real_n > n_node or n_pad < 0 or (n_pad and real_n == n_node):
+        raise ValueError(f"{real_n} nodes and {real_e} edges do not fit "
+                         f"{n_node} nodes (a pad node for the pad edges) "
+                         f"and {n_edge} edges")
+    if max(n_node, n_edge) >= 2 ** 31:
+        raise ValueError("plans index edges and nodes with int32")
+    tail_ptr = np.concatenate([[0], np.full(n_node - real_n, n_pad)])
+    pad_ids = np.full(n_pad, real_n, np.int32)
+    pad_pos = np.arange(real_e, n_edge, dtype=np.int32)
+    as_t = torch.from_numpy
+
+    # each entry's offset: its graph's first edge or node, by edge or node
+    e_by_edge = np.repeat(eoff.astype(np.int32), ne)
+    n_by_edge = np.repeat(noff.astype(np.int32), ne)
+    e_by_node = np.repeat(eoff.astype(np.int32), nn)
+
+    def direction(get):
+        sides = [get(p) for p in plans]
+        field = lambda name: [_host(getattr(q, name)) for q in sides]
+        longs = field("long_seg")
+        return EdgePlan(
+            order=as_t(_offset_cat(field("order"), e_by_edge, pad_pos)),
+            inv_order=as_t(_offset_cat(field("inv_order"), e_by_edge,
+                                       pad_pos)),
+            sorted_seg=as_t(_offset_cat(field("sorted_seg"), n_by_edge,
+                                        pad_ids)),
+            sorted_oth=as_t(_offset_cat(field("sorted_oth"), n_by_edge,
+                                        pad_ids)),
+            seg_ptr=as_t(_offset_cat([a[:-1] for a in field("seg_ptr")],
+                                     e_by_node, tail_ptr + real_e)),
+            long_seg=as_t(_offset_cat(
+                longs, np.repeat(noff.astype(np.int32),
+                                 [len(a) for a in longs]),
+                [real_n] * (n_pad > LONG_SEGMENT))),
+            n_node=n_node, n_edge=n_edge)
+
+    # the tail: the pad node and the empty nodes after it, planned alone
+    tail = build_iter_items(tail_ptr, tail_ptr)
+    its = [p.items for p in plans] + [tail]
+    n_slot = np.array([it.n_slot for it in its], np.int64)
+    soff = np.cumsum(n_slot) - n_slot
+    shift = np.stack([np.append(eoff, real_e), np.append(eoff, real_e),
+                      np.append(noff, real_n), soff], 1).astype(np.int32)
+    parts = {(d, split): [] for d in (0, 1) for split in (True, False)}
+    for it, off in zip(its, shift):
+        items = _host(it.items) + off
+        items[items[:, 3] < off[3], 3] = -1          # slot -1 stays -1
+        for d, rows in ((0, items[:it.n_recv]), (1, items[it.n_recv:])):
+            n_split = int(np.count_nonzero(rows[:, 3] >= 0))   # they lead
+            parts[(d, True)].append(rows[:n_split])
+            parts[(d, False)].append(rows[n_split:])
+    cat_rows = lambda d: np.concatenate(parts[(d, True)]
+                                        + parts[(d, False)]).reshape(-1, 4)
+    recv_items, send_items = cat_rows(0), cat_rows(1)
+    splits = np.concatenate(
+        [_host(it.splits) + off[[2, 3, 3, 3]] for it, off in zip(its, shift)]
+    ).reshape(-1, 4)
+    return AggPlans(
+        recv=direction(lambda p: p.recv), send=direction(lambda p: p.send),
+        send_in_recv=as_t(_offset_cat([_host(p.send_in_recv) for p in plans],
+                                      e_by_edge, pad_pos)),
+        items=IterItems(
+            items=as_t(np.ascontiguousarray(
+                np.concatenate([recv_items, send_items]), np.int32)),
+            splits=as_t(np.ascontiguousarray(splits, np.int32)),
+            n_recv=len(recv_items), n_slot=int(n_slot.sum())))
 
 
 _THREADS = 256       # threads a block (csrc/common.cuh kThreads)
@@ -1075,3 +1366,11 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for f in _kernel_wrappers():
         f.launches = 0
+
+
+def add_launch_counts(counts: dict):
+    """Adds ``counts`` (by wrapper name, as :func:`launch_counts` gives
+    them) to the wrappers' counts: a CUDA graph's replay launches the
+    kernels its capture recorded (``core/capture.py``)."""
+    for f in _kernel_wrappers():
+        f.launches += counts.get(f.__name__, 0)

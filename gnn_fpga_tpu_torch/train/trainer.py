@@ -6,12 +6,24 @@ on the edge and node networks), ``loss.backward()`` (on the ``pallas``
 route, through the backward kernels of ``ops/cuda/spmm.py``), the
 optimizer, and the mask re-projection that keeps pruned weights at 0.
 
+On a CUDA device the step, the eval loss and predict each run as one
+captured CUDA graph for each static batch signature
+(``core/capture.py``), the counterpart of the JAX package's ``jax.jit``:
+the first batch of a signature runs eagerly and is captured, every later
+one is copied into the capture's static buffers and replayed.  The cosine
+rate is then a device tensor that the schedule fills before each step,
+and Adam runs with ``capturable=True``.  ``Trainer(capture=False)``
+dispatches every op from Python instead; on the CPU the static-buffer
+body runs eagerly.
+
 Deliberate differences from the JAX package: the trainer takes the
 ``nn.Module`` (``model(graph, masks) -> logits``) instead of a
-``logits_fn`` over a parameter pytree; :meth:`Trainer.run_steps` is a
-Python loop over a sequence of graphs (the JAX package's ``lax.scan``
-over stacked batches) that keeps the losses on the device and reads them
-back once; checkpoints go through ``torch.save``.
+``logits_fn`` over a parameter pytree; :meth:`Trainer.run_steps` loops
+over a sequence of graphs (the JAX package's ``lax.scan`` over stacked
+batches), one replay a graph, and reads the losses back once;
+:meth:`Trainer.fit` keeps an epoch's losses on the device and reads them
+back once an epoch (unless ``verbose``); checkpoints go through
+``torch.save``.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from torch import nn
 
 from gnn_fpga_tpu_torch.compress.pruning import (apply_masks_to_params,
                                                  weight_matrices)
+from gnn_fpga_tpu_torch.core.capture import CapturedCall, signature
 from gnn_fpga_tpu_torch.core.graph import Graph
 from gnn_fpga_tpu_torch.train import metrics as metrics_lib
 from gnn_fpga_tpu_torch.train.checkpoint import CheckpointManager
@@ -64,27 +77,84 @@ def cosine_decay(step: int, decay_steps: int, alpha: float) -> float:
     return alpha + (1 - alpha) * 0.5 * (1 + math.cos(math.pi * t))
 
 
-def make_optimizer(cfg: TrainConfig, params):
-    """``(optimizer, scheduler)``: Adam or plain SGD, and a ``LambdaLR``
-    for the cosine schedule (None for a constant rate).  Step the
-    scheduler after the optimizer, so the first update uses step 0."""
+class CosineRate:
+    """The cosine schedule: after each optimizer step, :meth:`step` sets
+    every parameter group's rate to ``learning_rate * cosine_decay(t)``
+    for the next step ``t`` (the first update uses ``t = 0``).  A group
+    whose rate is a tensor (a captured step reads its rate from device
+    memory) has it filled in place, on the current stream, before the next
+    step is replayed; a float rate is replaced.  ``last_epoch`` and the
+    state dict keep the names of the ``LambdaLR`` this replaces, so
+    checkpoints resume either way."""
+
+    def __init__(self, optimizer, cfg: TrainConfig):
+        self.optimizer = optimizer
+        self.cfg = cfg
+        self.last_epoch = 0
+        self.apply()
+
+    def rate(self) -> float:
+        return self.cfg.learning_rate * cosine_decay(
+            self.last_epoch, self.cfg.decay_steps, self.cfg.lr_min_fraction)
+
+    def apply(self) -> None:
+        """Write the rate of step ``last_epoch`` into every group."""
+        lr = self.rate()
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def step(self) -> None:
+        self.last_epoch += 1
+        self.apply()
+
+    def state_dict(self) -> dict:
+        return {"last_epoch": self.last_epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.last_epoch = int(state["last_epoch"])
+        self.apply()
+
+
+def make_optimizer(cfg: TrainConfig, params, device_rate: bool = False):
+    """``(optimizer, scheduler)``: Adam or plain SGD, and a
+    :class:`CosineRate` for the cosine schedule (None for a constant
+    rate).  Step the scheduler after the optimizer, so the first update
+    uses step 0.
+
+    ``device_rate``: the rate of the cosine schedule is a 0-d f32 tensor
+    on the parameters' device, filled in place by the scheduler, so that
+    a captured step reads each step's rate; Adam then runs with
+    ``capturable=True`` on a CUDA device (its step count on the device).
+    SGD takes no tensor rate: sgd with the cosine schedule raises here.
+    """
     params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    if cfg.lr_schedule not in ("constant", "cosine"):
+        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+    if cfg.lr_schedule == "cosine" and cfg.decay_steps <= 0:
+        raise ValueError("lr_schedule='cosine' needs decay_steps > 0")
+    lr = cfg.learning_rate
+    if device_rate and cfg.lr_schedule == "cosine":
+        lr = torch.tensor(lr, dtype=torch.float32, device=device)
     if cfg.optimizer == "adam":
-        opt = torch.optim.Adam(params, lr=cfg.learning_rate,
-                               betas=(cfg.b1, cfg.b2), eps=cfg.eps)
+        opt = torch.optim.Adam(params, lr=lr, betas=(cfg.b1, cfg.b2),
+                               eps=cfg.eps,
+                               capturable=device_rate
+                               and device.type == "cuda")
     elif cfg.optimizer == "sgd":
-        opt = torch.optim.SGD(params, lr=cfg.learning_rate)
+        if isinstance(lr, torch.Tensor):
+            # torch's SGD reads a tensor rate back to the host each step
+            raise ValueError("sgd with a cosine rate cannot be captured: "
+                             "use Trainer(capture=False)")
+        opt = torch.optim.SGD(params, lr=lr)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     if cfg.lr_schedule == "constant":
         return opt, None
-    if cfg.lr_schedule != "cosine":
-        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
-    if cfg.decay_steps <= 0:
-        raise ValueError("lr_schedule='cosine' needs decay_steps > 0")
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda t: cosine_decay(t, cfg.decay_steps, cfg.lr_min_fraction))
-    return opt, sched
+    return opt, CosineRate(opt, cfg)
 
 
 def l1_penalty(model: nn.Module, modules=("edge", "node"),
@@ -134,12 +204,18 @@ class Trainer:
       metrics_path: optional jsonl file appended with per-epoch records.
       strategy: ``"single"``; ``"dp"`` and ``"partitioned"`` are not
         ported yet.
+      capture: on a CUDA device, run the step, the eval loss and predict
+        as captured CUDA graphs, one for each static batch signature
+        (:func:`~gnn_fpga_tpu_torch.core.capture.signature`); the first
+        batch of a signature runs eagerly.  False dispatches every op from
+        Python (the eager path the captured one is checked against).  On
+        the CPU the captured path's static-buffer body runs eagerly.
     """
 
     def __init__(self, model: nn.Module, cfg: TrainConfig = TrainConfig(),
                  masks=None, checkpoint_dir: Optional[str] = None,
                  metrics_path: Optional[str] = None,
-                 strategy: str = "single"):
+                 strategy: str = "single", capture: bool = True):
         if strategy in ("dp", "partitioned"):
             raise NotImplementedError(
                 f"strategy={strategy!r} is not ported yet (ROADMAP Queue 1 "
@@ -148,10 +224,12 @@ class Trainer:
             raise ValueError(f"unknown strategy {strategy!r}")
         self.cfg = cfg
         self.model = model
-        device = next(model.parameters()).device
-        self.masks = _masks_to(masks, device)
-        self.optimizer, self.scheduler = make_optimizer(cfg,
-                                                        model.parameters())
+        self.device = next(model.parameters()).device
+        self.capture = capture
+        self.masks = _masks_to(masks, self.device)
+        self._captured: dict = {}    # (kind, signature) -> CapturedCall
+        self._pool = None            # the captures' shared memory pool
+        self.optimizer, self.scheduler = self._make_optimizer()
         self.train_losses: List[float] = []
         self.valid_losses: List[float] = []
         self.best_valid_loss = float("inf")
@@ -183,21 +261,69 @@ class Trainer:
                                                    masks=self.masks)
         return loss
 
-    def _train_step(self, graph: Graph) -> torch.Tensor:
+    def _make_optimizer(self):
+        # Adam takes its rate from the device whether or not the step is
+        # captured, so that the captured and eager steps update alike;
+        # SGD only when captured (where its cosine rate raises)
+        cuda = self.device.type == "cuda"
+        return make_optimizer(
+            self.cfg, self.model.parameters(),
+            device_rate=cuda and (self.capture or self.cfg.optimizer
+                                  == "adam"))
+
+    def _step_body(self, graph: Graph) -> torch.Tensor:
+        """One optimizer step on ``graph``; what a capture records."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(graph)
         loss.backward()
         self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
         if self.masks is not None:
             # pruned weights stay exactly 0
             apply_masks_to_params(self.model, self.masks)
         return loss.detach()
 
-    @torch.no_grad()
+    def _eval_body(self, graph: Graph) -> torch.Tensor:
+        with torch.no_grad():
+            return self._loss(graph)
+
+    def _predict_body(self, graph: Graph) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.sigmoid(self._logits(graph))
+
+    def _run(self, kind: str, body, graph: Graph) -> torch.Tensor:
+        """``body(graph)``: eagerly with ``capture=False``, else through
+        the captured call of ``kind`` for the graph's signature (made at
+        its first batch).  The result is the caller's own (a replay's
+        output is copied out of the capture)."""
+        if not self.capture:
+            return body(graph)
+        key = (kind, signature(graph))
+        call = self._captured.get(key)
+        if call is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            call = self._captured[key] = CapturedCall(body, self.device,
+                                                      self._pool)
+            return call(graph)
+        return call(graph).clone()
+
+    def _drop_captures(self) -> None:
+        """Forget the captured graphs (they hold the addresses of the
+        optimizer state and weights they were captured with); the next
+        batch of each signature is captured anew."""
+        if self._captured and self.device.type == "cuda":
+            # replays still queued read memory that is about to be freed
+            torch.cuda.synchronize(self.device)
+        self._captured.clear()
+
+    def _train_step(self, graph: Graph) -> torch.Tensor:
+        loss = self._run("train", self._step_body, graph)
+        if self.scheduler is not None:
+            self.scheduler.step()
+        return loss
+
     def _eval_loss(self, graph: Graph) -> float:
-        return float(self._loss(graph))
+        return float(self._run("eval", self._eval_body, graph))
 
     # -- public API --------------------------------------------------------
 
@@ -209,17 +335,22 @@ class Trainer:
             n_epochs: int, valid_generator: Optional[Iterator[Graph]] = None,
             n_valid_batches: int = 0, verbose: int = 0) -> None:
         """Epoch loop, resumable: epochs are numbered from
-        ``len(train_losses)``."""
+        ``len(train_losses)``.  An epoch's losses stay on the device and
+        are read back once at its end (after each step when ``verbose >
+        0``), then summed in step order."""
         epoch_start = self.epoch
         for i in range(epoch_start, epoch_start + n_epochs):
             logger("Epoch %i" % i)
             t0 = time.perf_counter()
-            sum_loss = 0.0
+            losses = []
             for j in range(n_batches):
-                loss = float(self._train_step(next(train_generator)))
-                sum_loss += loss
+                losses.append(self._train_step(next(train_generator)))
                 if verbose > 0:
-                    logger("  Batch %i loss %f" % (j, loss))
+                    logger("  Batch %i loss %f" % (j, float(losses[-1])))
+            # one readback an epoch, summed in step order as before
+            sum_loss = 0.0
+            for loss in torch.stack(losses).cpu().tolist():
+                sum_loss += loss
             dt = time.perf_counter() - t0
             avg_loss = sum_loss / n_batches
             self.train_losses.append(avg_loss)
@@ -236,8 +367,10 @@ class Trainer:
             self._write_metrics(record)
 
     def run_steps(self, batches: Sequence[Graph]) -> np.ndarray:
-        """One optimizer step per graph of ``batches``; the losses stay on
-        the device and are read back once.  Returns them as float32."""
+        """One optimizer step per graph of ``batches`` (on the card, one
+        replay of the captured step each, after the first of a signature);
+        the losses stay on the device and are read back once.  Returns them
+        as float32."""
         losses = [self._train_step(g) for g in batches]
         return torch.stack(losses).float().cpu().numpy()
 
@@ -271,7 +404,6 @@ class Trainer:
         self.best_valid_loss = min(vloss, self.best_valid_loss)
         self.save_checkpoint(is_best)
 
-    @torch.no_grad()
     def predict(self, generator: Iterator[Graph], n_batches: int,
                 concat: bool = True):
         """Sigmoid probabilities over ``n_batches``; returns
@@ -279,7 +411,7 @@ class Trainer:
         preds, targets, masks = [], [], []
         for _ in range(n_batches):
             g = next(generator)
-            p = torch.sigmoid(self._logits(g)).cpu().numpy()
+            p = self._run("predict", self._predict_body, g).cpu().numpy()
             t, m = self._target_and_mask(g)
             preds.append(p.ravel())
             targets.append(t.cpu().numpy().ravel())
@@ -323,8 +455,9 @@ class Trainer:
         if self.ckpt is None or not self.ckpt.exists(best):
             return False
         state, meta = self.ckpt.restore(best)
+        self._drop_captures()
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self._load_optimizer_state(state["optimizer"])
         if self.scheduler is not None:
             self.scheduler.load_state_dict(state["scheduler"])
         self.best_valid_loss = float(meta["best_valid_loss"])
@@ -336,11 +469,30 @@ class Trainer:
         """Mask-aware weight transplant for pruning rounds: copy
         ``state_dict`` into the model, zero the masked-out weights, and
         start the optimizer and schedule afresh."""
+        self._drop_captures()
         self.model.load_state_dict(state_dict)
         if apply_masks:
             apply_masks_to_params(self.model, self.masks)
-        self.optimizer, self.scheduler = make_optimizer(
-            self.cfg, self.model.parameters())
+        self.optimizer, self.scheduler = self._make_optimizer()
+
+    def _load_optimizer_state(self, state) -> None:
+        """``optimizer.load_state_dict``, keeping this trainer's own rate
+        (a device tensor the captures read, or a float) and
+        ``capturable`` flag, which the saved groups would replace."""
+        keep = [(g["lr"], g.get("capturable"))
+                for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(state)
+        for group, (lr, capturable) in zip(self.optimizer.param_groups,
+                                           keep):
+            group["lr"] = lr
+            if capturable is not None:
+                group["capturable"] = capturable
+            if capturable:
+                for p in group["params"]:
+                    st = self.optimizer.state.get(p, {})
+                    if "step" in st:
+                        st["step"] = torch.as_tensor(
+                            st["step"], dtype=torch.float32).to(p.device)
 
     def _write_metrics(self, record) -> None:
         if not self.metrics_path:

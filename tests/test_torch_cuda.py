@@ -1022,3 +1022,168 @@ def test_train_cli_epoch_on_the_pallas_route(dev, tmp_path):
     assert counts["gather_pair"] == steps + valid
     assert counts["gather_pair_bwd"] == steps
     assert (tmp_path / "run" / "model.npz").exists()
+
+
+# ---------------------------------------------------------------------------
+# Captured steps and forwards (core/capture.py); kernels on padded plans
+# ---------------------------------------------------------------------------
+
+def _composed_batches(dev, n, seed=3):
+    """``n`` packed 4-sector batches on the card, their plans composed
+    from per-graph plans and padded to the dataset's capacity, as the
+    train CLI makes them: one static signature."""
+    from gnn_fpga_tpu_torch.cli import train
+    from gnn_fpga_tpu_torch.core import batching
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    cfg = toy2d.Toy2DConfig(n_layers=8, n_tracks=6, seed=seed)
+    graphs = tg.unbatch_graphs(toy2d.make_knn_segment_graphs(cfg, 24, k=3))
+    bucket = batching.choose_bucket(graphs, edge_multiple=256)
+    setup = train.PlanSetup(graphs, bucket, 4)
+    gen = batching.batch_generator(
+        graphs, 4, bucket, seed=seed, packed=True,
+        transform=setup.transform_for(range(len(graphs))))
+    return [next(gen).to(dev) for _ in range(n)]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_captured_steps_match_eager_steps(dev, fused, dtype):
+    """Five steps from one init: the captured steps (one capture, then
+    replays) against the eager ones, losses and weights at rtol 1e-5, and
+    each replay counts its kernels' launches as the eager step does."""
+    from gnn_fpga_tpu_torch.core.capture import signature
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batches = _composed_batches(dev, 5)
+    assert len({signature(b) for b in batches}) == 1
+    base = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas",
+                                   fused_iteration=fused,
+                                   compute_dtype=dtype),
+        torch.Generator().manual_seed(0), device=dev)
+    cfg = TrainConfig(learning_rate=3e-3, pos_weight=8.0, l1=1e-4,
+                      lr_schedule="cosine", decay_steps=5)
+    runs = {}
+    for capture in (True, False):
+        model = tm.SegmentClassifier(base.cfg, torch.Generator(), device=dev)
+        model.load_state_dict(base.state_dict())
+        tr = Trainer(model, cfg, capture=capture)
+        tsp.reset_launch_counts()
+        runs[capture] = (tr.run_steps(batches), tsp.launch_counts(),
+                         [p.detach().clone() for p in model.parameters()])
+        if capture:
+            (call,) = tr._captured.values()
+            assert call.captured
+    (got, got_n, got_w), (want, want_n, want_w) = runs[True], runs[False]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got_n == want_n
+    for a, b in zip(got_w, want_w):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_captured_forwards_match_eager_bit_for_bit(dev):
+    """The served fused forward and infer's dense forward, replayed on new
+    batches, give the eager forward's bits; a batch of another signature
+    raises."""
+    from gnn_fpga_tpu_torch.cli import infer
+    from gnn_fpga_tpu_torch.core.capture import CapturedCall
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    batches = _composed_batches(dev, 4, seed=4)
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas",
+                                   compute_dtype=torch.bfloat16),
+        torch.Generator().manual_seed(1), device=dev)
+
+    def forward(g):
+        with torch.no_grad():
+            return tm.segment_classifier(model, g)
+
+    call = CapturedCall(forward, dev)
+    for g in batches:
+        got = call(g).clone()
+        assert torch.equal(got, forward(g))
+    assert call.captured
+    with pytest.raises(ValueError, match="another static signature"):
+        call(next(_planned_batches()).to(dev))
+    dense = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2),
+        torch.Generator().manual_seed(2), device=dev)
+    fwd = infer.captured_forward(dense, dev)
+    sectors = tg.unbatch_graphs(toy2d.make_knn_segment_graphs(
+        toy2d.Toy2DConfig(n_layers=8, n_tracks=6, seed=5), 3, k=3))
+    graphs = [tg.pad_graph(g, 56, 256) for g in sectors]
+    for g in graphs:
+        got = fwd(g).clone()
+        with torch.no_grad():
+            assert torch.equal(got, tm.segment_classifier(dense, g.to(dev)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_padded_plans_match_unpadded_bit_for_bit(dev, dtype):
+    """A graph of 4,000 nodes with a 1,120-edge hub and 300 pad edges (so
+    the send pass's grid sits at its cap of two blocks an SM, as at the
+    fullevent shapes): every plan-reading kernel on plans padded with pad
+    items, splits and long segments gives the unpadded plans' bits."""
+    rng = np.random.default_rng(21)
+    v, e = 4000, 30_000
+    s = rng.integers(0, v - 1, e)
+    r = rng.integers(0, v - 1, e)
+    s[:1120], r[:1120] = 1, 0
+    s[-300:] = r[-300:] = v - 1
+    plans = tsp.build_agg_plans(s.astype(np.int32), r.astype(np.int32), v)
+    real = tsp.plan_counts(plans)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tsp.walk_blocks(real.send_items, sm) == 2 * sm
+    cap = tsp.PlanCapacity(
+        recv_items=real.recv_items + 500, send_items=real.send_items + 700,
+        splits=real.splits + 40, slots=real.slots + 90,
+        recv_long=real.recv_long + 5, send_long=real.send_long + 9)
+    padded = tsp.pad_plans(plans, cap).to(dev)
+    plans = plans.to(dev)
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    pa, pb, h, g_mi, g_mo = t(v, 64), t(v, 64), t(v, 66), t(v, 66), t(v, 66)
+    w2, b1, b2, g = t(64) * 0.25, t(64), t(1), t(e, 64)
+    em = torch.ones(e, device=dev)
+    em[-300:] = 0
+    w = torch.rand(e, device=dev) * em
+    ss, rr = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (s, r))
+
+    def run(p):
+        ems = tsp.sort_edge_weights(em, p.recv)
+        args = (pa, pb, h, ems, w2, b1, b2)
+        mi, mo, sig = tsp.iteration_pair_fwd(*args, p)
+        with torch.no_grad():
+            return ((mi, mo, sig)
+                    + tsp.iteration_pair_bwd(*args, g_mi, g_mo, p, sig)
+                    + tsp.aggregate_pair(h, w, p)
+                    + tsp.aggregate_pair_bwd(h, w, g_mi, g_mo, p)
+                    + (tsp.gather_pair(pa, pb, ss, rr, p),)
+                    + tsp.gather_pair_bwd(g, p)
+                    + (tsp.spmm_raw(h, w, p.recv), tsp.spmm_raw(h, w, p.send),
+                       tsp.sddmm(g_mi, h, p.recv),
+                       tsp.sddmm_dual(g_mi, h, g_mo, h, p.recv)))
+
+    want, got = run(plans), run(padded)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 20
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+
+
+def test_a_capture_that_fails_raises(dev):
+    """A call that reads a value back to the host cannot be captured: the
+    call raises after its eager run, and never serves eagerly."""
+    from gnn_fpga_tpu_torch.core.capture import CapturedCall
+
+    g = next(_planned_batches()).to(dev)
+    call = CapturedCall(lambda b: b.x * float(b.x.sum()), dev)
+    with pytest.raises(RuntimeError):
+        call(g)
+    assert not call.captured
+    torch.cuda.synchronize()
+    assert torch.isfinite(g.x.sum() + 1)        # the device still works

@@ -20,7 +20,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "import gnn_fpga_tpu_torch\n"
-        "from gnn_fpga_tpu_torch.core import graph, batching, prefetch\n"
+        "from gnn_fpga_tpu_torch.core import graph, batching, prefetch, capture\n"
         "from gnn_fpga_tpu_torch.data import toy2d\n"
         "from gnn_fpga_tpu_torch.ops import segment, dense_incidence, blocked\n"
         "from gnn_fpga_tpu_torch.ops.cuda import spmm, segment_sum, _build\n"

@@ -266,7 +266,8 @@ def _edge_values(t, s, r, em):
 def emulate_forward(t, plans, em_sorted):
     """The forward kernels' sums: each item's edges in sorted order into
     an f32 row, written to its node or its slot; split nodes' slots summed
-    in slot order."""
+    in slot order.  Pad items and splits (node -1, plans padded to a
+    capacity) do nothing."""
     it = plans.items
     recv, send = plans.recv, plans.send
     s, r = _np(recv.sorted_oth), _np(recv.sorted_seg)
@@ -276,6 +277,8 @@ def emulate_forward(t, plans, em_sorted):
     out = np.zeros((2, v, d), np.float32)
     part = np.zeros((it.n_slot, d), np.float32)
     for i, (beg, end, node, slot) in enumerate(_np(it.items)):
+        if node < 0:
+            continue
         by_send = i >= it.n_recv
         oth = _np(send.sorted_oth) if by_send else s
         acc = np.zeros(d, np.float32)
@@ -286,6 +289,8 @@ def emulate_forward(t, plans, em_sorted):
         else:
             part[slot] = acc
     for node, beg, mid, end in _np(it.splits):
+        if node < 0:
+            continue
         for k, (lo, hi) in enumerate(((beg, mid), (mid, end))):
             acc = np.zeros(d, np.float32)
             for slot in range(lo, hi):
@@ -305,7 +310,8 @@ def emulate_backward(t, plans, em_sorted, la, sm_count=132):
     = recv part + send part; the parameter sums per warp of the send pass
     (warp w of W takes items w, w + W, ...), then over warps.  A split
     node's items write partial rows, summed in slot order by the finish
-    pass."""
+    pass.  Pad items and splits (node -1) do nothing, but a send-pass
+    warp's pad items count in the stride as the kernel's do."""
     it = plans.items
     recv, send = plans.recv, plans.send
     s, r = _np(recv.sorted_oth), _np(recv.sorted_seg)
@@ -334,6 +340,8 @@ def emulate_backward(t, plans, em_sorted, la, sm_count=132):
     hpart = np.zeros((it.n_slot, hdim), np.float32)
     dpart = np.zeros((it.n_slot, d), np.float32)
     for i, (beg, end, node, slot) in enumerate(items):
+        if node < 0:
+            continue
         by_send = i >= it.n_recv
         own = (t["pa"] if by_send else t["pb"])[node]
         tab = t["pb"] if by_send else t["pa"]
@@ -359,6 +367,8 @@ def emulate_backward(t, plans, em_sorted, la, sm_count=132):
         else:
             dh_recv[node] = dh_acc
     for node, beg, mid, end in _np(it.splits):
+        if node < 0:
+            continue
         dp[0, node] = hpart[beg:mid].sum(0) if mid > beg else 0
         dp[1, node] = hpart[mid:end].sum(0) if end > mid else 0
         acc = np.zeros(d, np.float32)
@@ -416,3 +426,41 @@ def test_emulated_kernels_on_a_graph_without_edges():
         *(torch.from_numpy(t[k]) for k in ("w2", "b1", "b2")),
         torch.from_numpy(s), torch.from_numpy(r), v)
     assert not any(x.any() for x in ref)
+
+
+def _padded(plans, recv, send, splits=3, slots=5, long=2):
+    """``plans`` padded to their counts plus the given extra entries."""
+    real = tsp.plan_counts(plans)
+    return tsp.pad_plans(plans, tsp.PlanCapacity(
+        recv_items=real.recv_items + recv, send_items=real.send_items + send,
+        splits=real.splits + splits, slots=real.slots + slots,
+        recv_long=real.recv_long + long, send_long=real.send_long + long))
+
+
+@pytest.mark.parametrize("hub", HUBS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_kernels_give_the_same_bits_on_padded_plans(kind, hub):
+    """Padded plans (pad items after each direction's, pad splits, pad
+    long segments) give the unpadded plans' outputs bit for bit wherever
+    the send pass keeps its block count: with the grid at its cap (two
+    blocks an SM, as at the fullevent shapes) for any padding, and
+    uncapped when the send items stay within the same blocks of 8."""
+    s, r, em, v = _topology(8, kind, hub)
+    t = _tables(9, v, 10, 12)
+    plans = tsp.build_agg_plans(s, r, v)
+    em_sorted = em[_np(plans.recv.order)]
+    la = tsp.iteration_launch(len(s), 10, 12, torch.float32)
+    n_send = plans.items.n_item - plans.items.n_recv
+    fill = -n_send % 8
+    for padded, sm_count in ((_padded(plans, 37, 300), 1),
+                             (_padded(plans, 5, fill), 132)):
+        assert padded.items.n_item > plans.items.n_item
+        p_send = padded.items.n_item - padded.items.n_recv
+        assert (tsp.walk_blocks(p_send, sm_count)
+                == tsp.walk_blocks(n_send, sm_count))
+        for a, b in zip(emulate_forward(t, padded, em_sorted),
+                        emulate_forward(t, plans, em_sorted)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(emulate_backward(t, padded, em_sorted, la, sm_count),
+                        emulate_backward(t, plans, em_sorted, la, sm_count)):
+            np.testing.assert_array_equal(a, b)

@@ -13,6 +13,8 @@ and ``spmm`` VJPs, interpreted as ``tests/test_torch_ops.py``,
 ``tests/test_torch_spmm.py`` and ``tests/test_torch_spmm_grad.py`` run
 them."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -513,3 +515,36 @@ def test_alignment_of_table_views():
     assert tsp._alignment(t.flatten()[1:]) == 2
     assert tsp._alignment(torch.zeros((10, 64))[1:]) == 16
     assert tsp._alignment(torch.zeros(0)) == 16
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_row_kernels_give_the_same_bits_on_padded_plans(kind,
+                                                                  width):
+    """Plans padded to a capacity list pad long segments (node -1) after
+    the real ones, whose blocks return at once: every row kernel's
+    emulation gives the unpadded plans' bits."""
+    s, r, v = _topology(12, kind)
+    plans = tsp.build_agg_plans(s, r, v)
+    real = tsp.plan_counts(plans)
+    padded = tsp.pad_plans(plans, dataclasses.replace(
+        real, recv_items=real.recv_items + 9, send_items=real.send_items + 2,
+        splits=real.splits + 1, slots=real.slots + 4,
+        recv_long=real.recv_long + 3, send_long=real.send_long + 1))
+    assert padded.recv.long_seg.tolist()[-3:] == [-1] * 3
+    rng = np.random.default_rng(13)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    h, gm, go, q = f(v, width), f(v, width), f(v, width), f(v, width)
+    w, g = f(len(s)), f(len(s), width)
+    for la, elem in _emulated_launches(width):
+        for run in (
+                lambda p: emulate_sddmm(gm, h, p.recv, la, elem),
+                lambda p: emulate_sddmm_dual(gm, h, go, q, p.recv, la, elem),
+                lambda p: emulate_spmm(h, w, p.send, la),
+                lambda p: emulate_gather_bwd(g, p, la),
+                lambda p: emulate_aggregate_pair(h, w, p, la),
+                lambda p: emulate_aggregate_pair_bwd(h, w, gm, go, p, la,
+                                                     elem)):
+            as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+            for a, b in zip(as_tuple(run(padded)), as_tuple(run(plans))):
+                np.testing.assert_array_equal(a, b)
