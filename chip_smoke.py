@@ -71,7 +71,19 @@ it:
    forwards against the eager ones bit for bit; kernels #1-#7 (and sddmm,
    sddmm_dual) on plans padded to a static capacity against the unpadded
    plans bit for bit at the fullevent shape; a batch of another signature
-   raising.
+   raising;
+12. prepare: 4 synthetic TrackML-format events at mu200 density (10,000
+   particles, ~10^4 hits a barrel layer, 10% noise hits, particle ids
+   above 2^53) written with numpy; the doublet cross-join kernel
+   (``csrc/doublets.cu``) against its plain version, bit for bit, on one
+   whole event's barrel (no pT cut, one sector: ~10^8 pair evaluations a
+   layer pair), timed, with pair evaluations/s and its bound; the port's
+   ``prepare_graphs`` at its defaults on the card (one kernel call a
+   sector graph) and with ``--device cpu``, every NPZ array identical,
+   ms an event for reading, selecting and building; the train CLI on the
+   prepared graphs on the fused route in bf16 at the fullevent widths, 2
+   epochs, exact launch counts, finite losses; infer on them.  pandas is
+   never imported.
 
 The packed graphs' plans are padded to one capacity that holds all of
 them, as the train CLI pads a bucket's, so that the requests and steps of
@@ -93,8 +105,8 @@ It prints a JSON line of per-kernel results and ends with one JSON line
 exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
 three fused requests, three fused training steps, one blocked training
 step and three NodeClassifier training steps to PATH.  ``--phase NAME``
-(kernels, iteration, rows or stream; repeatable) runs only those
-measurement phases, on the first packed graph, and prints no result line:
+(kernels, iteration, rows or stream, on the first packed graph, or
+prepare; repeatable) runs only those phases and prints no result line:
 copied into an older checkout, it measures that tree's kernels the same
 way.
 """
@@ -132,7 +144,8 @@ SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
            "gather": "gnn_fpga_tpu_torch/csrc/gather.cu",
            "segsum": "gnn_fpga_tpu_torch/csrc/segment_sum.cu",
            "iter_fwd": "gnn_fpga_tpu_torch/csrc/iteration_fwd.cu",
-           "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu"}
+           "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu",
+           "doublets": "gnn_fpga_tpu_torch/csrc/doublets.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
 KERNELS = {
     "iteration_pair": ("iter_fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
@@ -147,6 +160,8 @@ KERNELS = {
     "sddmm_dual": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:563"),
     "sorted_segment_sum": ("segsum",
                            "gnn_fpga_tpu/ops/pallas/segment_sum.py:82"),
+    # the repo's one native (C++) kernel, not a Pallas kernel
+    "select_segments": ("doublets", "native/doublets.cpp:37"),
 }
 # Kernel outputs that are f32 from T-typed tables ([E] edge values): they
 # take the f32 tolerance whatever T is.
@@ -220,6 +235,31 @@ BEFORE = {"prefetch 2": "46.297 / 72.325 ms",
          "pack_graphs": "4.584 / 9.721 ms", "infer": "2741.9 / 3079.0 us",
          "busy": "5.5% / 4.5% of a CLI epoch", "device": "2.540 ms",
          "idle": "78.6% (profiler on)"}
+
+
+# The prepare phase: synthetic TrackML-format events at mu200 density
+# (10,000 particles, ~10^4 hits a barrel layer, 10% noise hits), through
+# the port's prepare_graphs -> train -> infer.  TrackML's barrel layers:
+# (volume_id, layer_id, radius in mm).
+PREP_EVENTS, PREP_PARTICLES, PREP_NOISE = 4, 10_000, 0.1
+PREP_LAYERS = ((8, 2, 32.0), (8, 4, 72.0), (8, 6, 116.0), (8, 8, 172.0),
+               (13, 2, 260.0), (13, 4, 360.0), (13, 6, 500.0),
+               (13, 8, 660.0), (17, 2, 820.0), (17, 4, 1020.0))
+PREP_HALF_LENGTH = 1100.0   # mm: |z| of a barrel hit
+# pT = 0.2 GeV + an exponential of mean 0.8 / ln 10 GeV: 10% pass 1 GeV
+PREP_PT_MIN, PREP_PT_MEAN = 0.2, 0.8 / 2.302585092994046
+PREP_BEND = 3e-4            # dphi/dr per mm at 1 GeV in 2 T (1 / 2R)
+PREP_Z0_SIGMA, PREP_ETA_MAX = 55.0, 1.0
+# The train CLI on the prepared sectors (4 events x 8 sectors): batches of
+# 4, one validation batch, 7 train steps an epoch, the fullevent widths
+PREP_BATCH, PREP_VALID_FRAC, PREP_EPOCHS = 4, 0.125, 2
+PREP_TRAIN_STEPS, PREP_VALID_BATCHES = 7, 1
+# The doublet kernel's bound: the H100 SXM's published f64 rate outside
+# the tensor cores (NVIDIA's data sheet, at 700 W), and the f64 operations
+# of one pair evaluation (3 subtractions, 2 divisions, 1 multiplication,
+# 1 subtraction, 2 wrap tests, 2 absolute values, 2 comparisons; the
+# rarely taken wrap additions not counted)
+PEAK_F64_PER_S, DOUBLET_F64_OPS = 34e12, 13
 
 
 def fail(msg: str):
@@ -1962,6 +2002,349 @@ def phase_gcn(device) -> dict:
     return spmm.launch_counts()
 
 
+def write_trackml_events(directory, n_events: int, n_particles: int,
+                         seed: int, noise: float = PREP_NOISE) -> None:
+    """Synthetic TrackML-format events (``event<id>-hits.csv``,
+    ``-particles.csv``, ``-truth.csv``, TrackML's columns), written with
+    numpy alone: ``n_particles`` tracks from a falling pT spectrum, charge
+    +-1, bending ``dphi/dr = PREP_BEND / pT``, z0 ~ N(0, 55 mm), |eta| <
+    1, one hit a barrel layer within |z| < PREP_HALF_LENGTH, and a
+    ``noise`` share of hits with particle_id 0 uniform over the layers;
+    particle ids above 2^53 (odd offsets, which no float64 holds)."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = lambda fmt, a: [fmt % v for v in np.asarray(a).tolist()]
+    for ev in range(n_events):
+        n = n_particles
+        pid = (np.int64(2 ** 53) + 1 + np.arange(n, dtype=np.int64) * 4099
+               + rng.integers(0, 4099, n))
+        pt = PREP_PT_MIN + rng.exponential(PREP_PT_MEAN, n)
+        q = rng.choice(np.array([-1, 1]), n)
+        phi0 = rng.uniform(-np.pi, np.pi, n)
+        eta = rng.uniform(-PREP_ETA_MAX, PREP_ETA_MAX, n)
+        z0 = rng.normal(0.0, PREP_Z0_SIGMA, n)
+        px, py, pz = pt * np.cos(phi0), pt * np.sin(phi0), pt * np.sinh(eta)
+        cols = {k: [] for k in ("layer", "r", "phi", "z", "pid", "track")}
+        for li, (_, _, radius) in enumerate(PREP_LAYERS):
+            r = radius + rng.uniform(-0.5, 0.5, n)
+            phi = phi0 + q * PREP_BEND * r / pt
+            phi = (phi + np.pi) % (2 * np.pi) - np.pi
+            z = z0 + r * np.sinh(eta)
+            keep = np.abs(z) < PREP_HALF_LENGTH
+            for k, v in (("layer", np.full(n, li)), ("r", r), ("phi", phi),
+                         ("z", z), ("pid", pid), ("track", np.arange(n))):
+                cols[k].append(v[keep])
+        n_track_hits = sum(len(v) for v in cols["r"])
+        m = int(round(noise / (1 - noise) * n_track_hits))
+        layer = rng.integers(0, len(PREP_LAYERS), m)
+        radii = np.array([x[2] for x in PREP_LAYERS])
+        for k, v in (("layer", layer),
+                     ("r", radii[layer] + rng.uniform(-0.5, 0.5, m)),
+                     ("phi", rng.uniform(-np.pi, np.pi, m)),
+                     ("z", rng.uniform(-PREP_HALF_LENGTH, PREP_HALF_LENGTH,
+                                       m)),
+                     ("pid", np.zeros(m, np.int64)),
+                     ("track", np.full(m, -1))):
+            cols[k].append(v)
+        h = {k: np.concatenate(v) for k, v in cols.items()}
+        order = np.argsort(h["layer"], kind="stable")   # TrackML's order
+        h = {k: v[order] for k, v in h.items()}
+        n_hits = len(order)
+        x, y = h["r"] * np.cos(h["phi"]), h["r"] * np.sin(h["phi"])
+        vol = np.array([v for v, _, _ in PREP_LAYERS])[h["layer"]]
+        lay = np.array([l for _, l, _ in PREP_LAYERS])[h["layer"]]
+        hit_id = np.arange(1, n_hits + 1)
+        noise_hit = h["track"] < 0
+        trk = np.where(noise_hit, 0, h["track"])
+        nhits = np.bincount(h["track"][~noise_hit], minlength=n)
+        tp = [np.where(noise_hit, 0.0, a[trk]) for a in (px, py, pz)]
+        weight = np.where(noise_hit, 0.0, 1.0 / np.maximum(nhits[trk], 1))
+        prefix = os.path.join(str(directory), f"event{ev:09d}")
+        tables = {
+            "hits": (("hit_id", f("%d", hit_id)), ("x", f("%.4f", x)),
+                     ("y", f("%.4f", y)), ("z", f("%.4f", h["z"])),
+                     ("volume_id", f("%d", vol)),
+                     ("layer_id", f("%d", lay)),
+                     ("module_id", f("%d", rng.integers(1, 3000, n_hits)))),
+            "particles": (("particle_id", f("%d", pid)),
+                          ("vx", f("%.6f", rng.normal(0, 0.01, n))),
+                          ("vy", f("%.6f", rng.normal(0, 0.01, n))),
+                          ("vz", f("%.6f", z0)), ("px", f("%.6f", px)),
+                          ("py", f("%.6f", py)), ("pz", f("%.6f", pz)),
+                          ("q", f("%d", q)), ("nhits", f("%d", nhits))),
+            "truth": (("hit_id", f("%d", hit_id)),
+                      ("particle_id", f("%d", h["pid"])),
+                      ("tx", f("%.4f", x)), ("ty", f("%.4f", y)),
+                      ("tz", f("%.4f", h["z"])),
+                      ("tpx", f("%.6f", tp[0])), ("tpy", f("%.6f", tp[1])),
+                      ("tpz", f("%.6f", tp[2])),
+                      ("weight", f("%.9f", weight))),
+        }
+        for part, columns in tables.items():
+            names, values = zip(*columns)
+            with open(f"{prefix}-{part}.csv", "w") as out:
+                out.write(",".join(names) + "\n")
+                out.write("\n".join(map(",".join, zip(*values))) + "\n")
+
+
+def doublet_inputs(prefix: str, device) -> tuple:
+    """The doublet kernel's arguments for one whole event's barrel (no pT
+    cut, one phi sector, nodes in (layer, phi) order as the CLI sorts
+    them) at the CLI's default cuts: ``(args, z0_max, evaluations)``."""
+    import numpy as np
+
+    from gnn_fpga_tpu_torch.cli import prepare_graphs
+    from gnn_fpga_tpu_torch.data import doublets, selection, trackml_io
+
+    a = prepare_graphs.parse_args(["--input-dir", "."])
+    hits, particles, truth = trackml_io.load_event(prefix)
+    sector = selection.split_phi_sectors(
+        selection.select_hits(hits, truth, particles, pt_min=0.0),
+        n_phi_sectors=1)[0].sort(["layer", "phi"])
+    cuts = doublets.SegmentCuts(phi_slope_max=a.phi_slope_max,
+                                phi_slope_outer_max=a.phi_slope_outer_max,
+                                z0_max=a.z0_max)
+    p = doublets.layer_pair_hits(sector["layer"],
+                                 doublets.adjacent_layer_pairs(10), cuts)
+    t = lambda v: torch.tensor(np.ascontiguousarray(v), device=device)
+    cols = [sector[k].astype(np.float64) for k in ("r", "phi", "z")]
+    args = (*(t(c[p.rows1]) for c in cols), *(t(c[p.rows2]) for c in cols),
+            t(p.off1), t(p.off2), t(p.phi_slope_cuts))
+    evals = int((np.diff(p.off1) * np.diff(p.off2)).sum())
+    return args, cuts.z0_max, evals
+
+
+def check_doublet_kernel(prefix: str, device) -> dict:
+    """The doublet kernel against its plain version on one whole event's
+    barrel, bit for bit, twice; its device time (count, prefix sum and
+    emit replayed from a CUDA graph into outputs sized by a first call),
+    the wrapper's and the plain version's dispatched times (both sync with
+    the host), pair evaluations/s, the bound, and the C++ library's time
+    on the host where it is built."""
+    from gnn_fpga_tpu_torch.ops.cuda import _build
+    from gnn_fpga_tpu_torch.ops.cuda import doublets as dop
+
+    args, z0_max, evals = doublet_inputs(prefix, device)
+    n1, n2, n_pairs = args[0].shape[0], args[3].shape[0], args[8].shape[0]
+    kern = lambda: dop.select_segments(*args, z0_max)
+    plain = lambda: dop.select_segments_reference(*args, z0_max)
+    got, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    n_kept = got[0].shape[0]
+    print(f"prepare: doublet kernel on one event's barrel: {n_pairs} layer "
+          f"pairs, {n1} inner and {n2} outer hits, {evals} pair "
+          f"evaluations, {n_kept} doublets kept", flush=True)
+    for side, a, b, c in zip(("i1", "i2"), got, ref, again):
+        exact(f"select_segments {side}", a, b)
+        exact(f"select_segments {side}, second launch", c, a)
+
+    lib, ptr = _build.load_library(), lambda x: x.data_ptr()
+    counts = torch.empty(n1, dtype=torch.int64, device=device)
+    ends = torch.empty_like(counts)
+    out1, out2 = torch.empty_like(got[0]), torch.empty_like(got[1])
+    cargs = (n_pairs, n1, *(ptr(x) for x in args), float(z0_max))
+
+    def launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        lib.gnn_doublet_count(*cargs, ptr(counts), stream)
+        torch.cumsum(counts, 0, out=ends)
+        lib.gnn_doublet_emit(*cargs, ptr(ends), ptr(out1), ptr(out2), stream)
+
+    launch()
+    exact("select_segments i1, graph-timed launch", out1, got[0])
+    p1, k1, w1, k2, w2, p2 = (
+        time_ms(plain, n=3, warmup=1, graph=False), time_ms(launch),
+        time_ms(kern, n=5, warmup=1, graph=False), time_ms(launch),
+        time_ms(kern, n=5, warmup=1, graph=False),
+        time_ms(plain, n=3, warmup=1, graph=False))
+    ms = device_ms(k1, k2)
+    plain_ms = (p1[1] + p2[1]) / 2
+    nbytes = 24 * (n1 + n2) + 16 * (n_pairs + 1) + 8 * n_pairs + 16 * n_kept
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = evals * DOUBLET_F64_OPS / PEAK_F64_PER_S * 1e3
+    bound, by = ((by_bytes, "bytes") if by_bytes >= by_ops
+                 else (by_ops, "operations"))
+    native_ms = time_native(args, z0_max, got)
+    print(f"  [{card()}] select_segments: kernel {ms:.4f} ms ({fmt_ms(k1)}, "
+          f"{fmt_ms(k2)}; count, prefix sum and emit replayed), "
+          f"{evals / ms * 1e3:.4e} pair evaluations/s; the wrapper with its "
+          f"host sync {(w1[1] + w2[1]) / 2:.4f} ms dispatched; plain "
+          f"{plain_ms:.4f} ms dispatched ({p1[1]:.4f}, {p2[1]:.4f}); bound "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+          f"{by_bytes:.4f} ms, {evals} x {DOUBLET_F64_OPS} f64 operations "
+          f"at 34 TFLOP/s {by_ops:.4f} ms); one PyTorch call: none; the C++ "
+          f"library (native/doublets.cpp, {native_cpu()}): "
+          f"{'not built' if native_ms is None else f'{native_ms:.1f} ms'}",
+          flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def native_cpu() -> str:
+    """The host's cores as the C++ library's OpenMP sees them."""
+    import os
+
+    from gnn_fpga_tpu_torch.data import native
+
+    n = native.num_threads() or os.cpu_count()
+    return f"{n} host thread{'s' if n > 1 else ''}"
+
+
+def time_native(args, z0_max, got):
+    """ms of the repo's C++ library (``make -C native``; absent from a
+    fresh checkout, then None) on the kernel's inputs, pair by pair on the
+    host as the CPU path calls it, mean of 2, checked equal to the
+    kernel's doublets."""
+    import numpy as np
+
+    from gnn_fpga_tpu_torch.data import doublets, native
+
+    if not native.available():
+        return None
+    host = [a.cpu().numpy() for a in args]
+    run = lambda: doublets.select_segments_batched(
+        *host[:6], *host[6:], z0_max, device="cpu")
+    out = run()
+    if not all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(out, got)):
+        fail("select_segments: the C++ library's doublets differ")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        run()
+    return (time.perf_counter() - t0) / 2 * 1e3
+
+
+def same_npz_files(dir_a: str, dir_b: str) -> int:
+    """Fails unless the two directories hold the same NPZ files with the
+    same arrays, key for key, dtype for dtype, bit for bit; their
+    count."""
+    import glob
+    import os
+
+    import numpy as np
+
+    names = sorted(os.path.basename(f)
+                   for f in glob.glob(os.path.join(dir_a, "*.npz")))
+    if not names or names != sorted(
+            os.path.basename(f)
+            for f in glob.glob(os.path.join(dir_b, "*.npz"))):
+        fail(f"prepare: the card and the CPU wrote different files")
+    for name in names:
+        with np.load(os.path.join(dir_a, name)) as a, \
+                np.load(os.path.join(dir_b, name)) as b:
+            if sorted(a.files) != sorted(b.files) or any(
+                    a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+                    for k in a.files):
+                fail(f"prepare: {name} differs between the card and the CPU")
+    return len(names)
+
+
+def phase_prepare(device) -> tuple:
+    """The front door from raw events: PREP_EVENTS synthetic TrackML
+    events at mu200 density; the doublet kernel against its plain version
+    on one whole event's barrel; the port's prepare_graphs at its defaults
+    on the card (the main path: one kernel call a sector) and with
+    ``--device cpu``, every NPZ array identical; the train CLI on the
+    prepared sectors on the fused route in bf16 at the fullevent widths
+    (exact launch counts, finite losses) and infer on them.  No pandas.
+    Returns ``(launches, the doublet kernel's row)``."""
+    import os
+    import tempfile
+
+    from gnn_fpga_tpu_torch.cli import infer, prepare_graphs, train
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, card_dir, cpu_dir, run_dir = (os.path.join(tmp, d) for d in (
+            "raw", "graphs", "graphs_cpu", "run"))
+        os.makedirs(raw)
+        t0 = time.perf_counter()
+        write_trackml_events(raw, PREP_EVENTS, PREP_PARTICLES, seed=0)
+        print(f"prepare: {PREP_EVENTS} TrackML-format events of "
+              f"{PREP_PARTICLES} particles written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        row = check_doublet_kernel(os.path.join(raw, "event000000000"),
+                                   device)
+        argv = ["--input-dir", raw, "--n-files", str(PREP_EVENTS)]
+        n_graphs = PREP_EVENTS * prepare_graphs.parse_args(argv).n_phi_sectors
+        train_argv = ["--input-dir", card_dir, "--output-dir", run_dir,
+                      "--n-samples", str(n_graphs),
+                      "--batch-size", str(PREP_BATCH),
+                      "--hidden-dim", str(HIDDEN), "--n-iters", str(N_ITERS),
+                      "--aggregation", "pallas", "--bf16",
+                      "--n-epochs", str(PREP_EPOCHS),
+                      "--valid-frac", str(PREP_VALID_FRAC),
+                      "--test-frac", "0"]
+        infer_argv = ["--model", os.path.join(run_dir, "model.npz"),
+                      "--input-dir", card_dir, "--n-graphs", "8",
+                      "--hidden-dim", str(HIDDEN), "--n-iters", str(N_ITERS)]
+        spmm.reset_launch_counts()
+        # --- the main path: prepare on the card, train, infer
+        t0 = time.perf_counter()
+        graphs, times = prepare_graphs.run(prepare_graphs.parse_args(
+            argv + ["--output-dir", card_dir]))
+        prep_s = time.perf_counter() - t0
+        prep_counts = spmm.launch_counts()
+        trainer = train.main(train_argv)
+        train_counts = spmm.launch_counts()
+        results, _ = infer.run(infer.parse_args(infer_argv))
+        launches = spmm.launch_counts()
+        # --- checks (not counted)
+        summary = prepare_graphs.graphs_summary(graphs)
+        mean = lambda k: sum(t[k] for t in times) / len(times) * 1e3
+        print(f"  [{card()}] prepare_graphs on the card: {prep_s:.2f} s for "
+              f"{PREP_EVENTS} events; ms an event: read {mean('read_s'):.1f},"
+              f" select {mean('select_s'):.1f}, build (the cross-join and "
+              f"the features) {mean('build_s'):.1f}; {summary['n_events']} "
+              f"graphs, {summary['nodes_per_event']:.1f} nodes and "
+              f"{summary['edges_per_event']:.1f} edges a graph, purity "
+              f"{summary['purity']:.4f}", flush=True)
+        if not n_graphs // 2 <= len(graphs) <= prep_counts[
+                "select_segments"] <= n_graphs:
+            fail(f"prepare: {len(graphs)} graphs from "
+                 f"{prep_counts['select_segments']} doublet kernel launches "
+                 f"and {n_graphs} sectors")
+        if {k: v for k, v in prep_counts.items() if k != "select_segments"
+            } != {k: 0 for k in prep_counts if k != "select_segments"}:
+            fail(f"prepare: another kernel launched: {prep_counts}")
+        t0 = time.perf_counter()
+        prepare_graphs.main(argv + ["--output-dir", cpu_dir,
+                                    "--device", "cpu"])
+        n_files = same_npz_files(card_dir, cpu_dir)
+        print(f"  the same with --device cpu in "
+              f"{time.perf_counter() - t0:.2f} s: {n_files} NPZ files, every "
+              f"array identical", flush=True)
+        per_epoch = dict(
+            iteration_pair=N_ITERS * (PREP_TRAIN_STEPS + PREP_VALID_BATCHES),
+            iteration_pair_bwd=N_ITERS * PREP_TRAIN_STEPS,
+            gather_pair=PREP_TRAIN_STEPS + PREP_VALID_BATCHES,
+            gather_pair_bwd=PREP_TRAIN_STEPS)
+        want = expected_counts(select_segments=prep_counts["select_segments"],
+                               **{k: v * PREP_EPOCHS
+                                  for k, v in per_epoch.items()})
+        print(f"  launches (prepare, train, infer): {launches}", flush=True)
+        if train_counts != want or launches != want:
+            fail(f"prepare: launched {train_counts} by the train CLI and "
+                 f"{launches} with infer, expected {want}")
+        losses = trainer.train_losses + trainer.valid_losses
+        print(f"  train CLI on the prepared graphs (pallas, bf16, hidden "
+              f"{HIDDEN}, {N_ITERS} iterations): train losses "
+              f"{trainer.train_losses}, valid {trainer.valid_losses}; infer "
+              f"mean scores {[round(r['mean_score'], 4) for r in results]}",
+              flush=True)
+        if len(trainer.train_losses) != PREP_EPOCHS or not torch.isfinite(
+                torch.tensor(losses)).all():
+            fail("prepare: the train CLI's losses are not finite")
+        scores = torch.tensor([r["mean_score"] for r in results])
+        if len(results) != 8 or not ((scores >= 0) & (scores <= 1)).all():
+            fail(f"prepare: infer scored {len(results)} graphs: {scores}")
+    if "pandas" in sys.modules:
+        fail("prepare: pandas was imported")
+    return launches, row
+
+
 def padded_kernel_runs(g, gen) -> dict:
     """The plan-reading kernels (#1-#5, #7, and sddmm, sddmm_dual) and
     gather_pair (#6) on ``g``'s topology with ``plans``, in f32 and bf16,
@@ -2179,9 +2562,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="also write torch.profiler tables to PATH")
-    ap.add_argument("--phase", action="append", choices=tuple(MEASUREMENTS),
-                    help="run only this measurement phase on the first "
-                         "packed graph (repeatable): no main path and no "
+    ap.add_argument("--phase", action="append",
+                    choices=tuple(MEASUREMENTS) + ("prepare",),
+                    help="run only this phase (a measurement phase on the "
+                         "first packed graph, or prepare; repeatable): no "
                          "result line")
     args = ap.parse_args()
     kind = phase_device()
@@ -2190,9 +2574,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     if args.phase:
-        g = make_request(0, device)
+        g = (make_request(0, device) if set(args.phase) - {"prepare"}
+             else None)
         for name in args.phase:
-            MEASUREMENTS[name](g)
+            if name == "prepare":
+                phase_prepare(device)
+            else:
+                MEASUREMENTS[name](g)
         return
     t0 = time.perf_counter()
     unpadded = [make_request(seed, device) for seed in range(N_REQUESTS)]
@@ -2214,6 +2602,9 @@ def main():
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
     phase_capture(device, graphs, unpadded)
+    prep_launches, kernels[("select_segments", torch.bfloat16)] = \
+        phase_prepare(device)
+    paths += (prep_launches,)
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
                  launches=sum(path[name] for path in paths),

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _D = ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "gnn_iteration_pair_fwd": ([_I] * 8 + [_P] * 12 + [_I] * 2 + [_P, _I]
                                + [_P] * 6, _I),
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "gnn_sddmm": ([_I] * 5 + [_P] * 6 + [_I] + [_P] * 2, _I),
     "gnn_sddmm_dual": ([_I] * 5 + [_P] * 8 + [_I] + [_P] * 2, _I),
     "gnn_sorted_segment_sum": ([_I] * 6 + [_P] * 3 + [_I] + [_P] * 3, _I),
+    "gnn_doublet_count": ([_I, _L] + [_P] * 9 + [_D] + [_P] * 2, _I),
+    "gnn_doublet_emit": ([_I, _L] + [_P] * 9 + [_D] + [_P] * 4, _I),
 }
 
 

@@ -1349,17 +1349,19 @@ sddmm_dual.launches = 0
 
 
 def _kernel_wrappers() -> tuple:
+    from gnn_fpga_tpu_torch.ops.cuda.doublets import select_segments
     from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
 
     return (iteration_pair, aggregate_pair, gather_pair, iteration_pair_bwd,
             aggregate_pair_bwd, gather_pair_bwd, spmm, sddmm, sddmm_dual,
-            sorted_segment_sum)
+            sorted_segment_sum, select_segments)
 
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset, by name: the
-    wrappers of this module and :func:`~gnn_fpga_tpu_torch.ops.cuda.
-    segment_sum.sorted_segment_sum`."""
+    wrappers of this module, :func:`~gnn_fpga_tpu_torch.ops.cuda.
+    segment_sum.sorted_segment_sum` and :func:`~gnn_fpga_tpu_torch.ops.
+    cuda.doublets.select_segments`."""
     return {f.__name__: f.launches for f in _kernel_wrappers()}
 
 

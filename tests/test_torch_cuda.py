@@ -1187,3 +1187,103 @@ def test_a_capture_that_fails_raises(dev):
     assert not call.captured
     torch.cuda.synchronize()
     assert torch.isfinite(g.x.sum() + 1)        # the device still works
+
+
+# ---------------------------------------------------------------------------
+# The doublet cross-join (csrc/doublets.cu)
+# ---------------------------------------------------------------------------
+
+def _doublet_args(sizes, dev, seed=0, boundary=False):
+    """Hits of layer pairs of ``sizes`` ((n1, n2) each) on ``dev``, their
+    offsets and cuts; with ``boundary`` hits exactly on the cuts and one
+    ulp inside them."""
+    rng = np.random.default_rng(seed)
+    cols = [[] for _ in range(6)]
+    for n1, n2 in sizes:
+        r1, r2 = rng.uniform(20, 40, n1), rng.uniform(50, 70, n2)
+        p1 = rng.uniform(-np.pi, np.pi, n1)
+        p2 = rng.uniform(-np.pi, np.pi, n2)
+        z1, z2 = rng.uniform(-200, 200, n1), rng.uniform(-200, 200, n2)
+        if boundary and n1 > 1 and n2 > 1:
+            r2[0], p2[0], z2[0] = r1[0] + 32.0, p1[0] + 0.5, z1[0]
+            r2[-1], z2[-1] = r1[-1] + 32.0, z1[-1]
+            p2[-1] = np.nextafter(p1[-1] + 0.5, p1[-1])
+            z1[1], z2[1], r2[1], p2[1] = 150.0, 150.0, r1[1] + 10.0, p1[1]
+        for c, v in zip(cols, (r1, p1, z1, r2, p2, z2)):
+            c.append(v)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    off = lambda k: t(np.concatenate([[0], np.cumsum(
+        [s[k] for s in sizes])]).astype(np.int64))
+    cuts = t(np.resize([0.015625, 0.05, 1e31], len(sizes)).astype(np.float64))
+    return [t(np.concatenate(c) if c else np.zeros(0)) for c in cols] + [
+        off(0), off(1), cuts]
+
+
+@pytest.mark.parametrize("sizes,boundary", [
+    ([(173, 211), (50, 60), (300, 17)], False),
+    ([(0, 9), (13, 17), (5, 0), (0, 0), (40, 33)], False),   # empty pairs
+    ([(64, 80), (33, 31)], True),                             # on the cuts
+])
+def test_doublet_kernel_matches_plain_exactly(dev, sizes, boundary):
+    from gnn_fpga_tpu_torch.ops.cuda import doublets as dop
+
+    args = _doublet_args(sizes, dev, boundary=boundary)
+    n0 = tsp.launch_counts()["select_segments"]
+    got = dop.select_segments(*args, 150.0)
+    again = dop.select_segments(*args, 150.0)
+    torch.cuda.synchronize()
+    assert tsp.launch_counts()["select_segments"] == n0 + 2
+    ref = dop.select_segments_reference(*args, 150.0)
+    assert len(ref[0]) > 0
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == torch.int64
+        assert torch.equal(a, b)
+        assert torch.equal(c, a)
+
+
+def test_doublet_kernel_on_one_large_pair(dev):
+    """One pair of 10^4 x 10^4 hits."""
+    from gnn_fpga_tpu_torch.ops.cuda import doublets as dop
+
+    args = _doublet_args([(10_000, 10_000)], dev, seed=3)
+    got = dop.select_segments(*args, 150.0)
+    ref = dop.select_segments_reference(*args, 150.0)
+    torch.cuda.synchronize()
+    assert len(ref[0]) > 10_000
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_doublet_kernel_with_no_kept_pair_and_no_pairs(dev):
+    from gnn_fpga_tpu_torch.ops.cuda import doublets as dop
+
+    args = _doublet_args([(20, 30)], dev)
+    got = dop.select_segments(*args[:8], torch.zeros(
+        1, dtype=torch.float64, device=dev), 150.0)
+    assert got[0].shape == (0,) and got[1].shape == (0,)
+    none = _doublet_args([], dev)
+    got = dop.select_segments(*none, 150.0)
+    assert got[0].shape == (0,)
+
+
+def test_construct_graph_on_the_card_equals_the_cpu(dev):
+    """A whole graph: the card's one kernel call against the CPU's plain
+    cross-join, field for field."""
+    from gnn_fpga_tpu_torch.data import doublets as tdbl
+    from gnn_fpga_tpu_torch.data.table import Table
+
+    rng = np.random.default_rng(5)
+    n = 4000
+    hits = Table({"layer": rng.integers(0, 10, n),
+                  "r": rng.uniform(30, 1000, n),
+                  "phi": rng.uniform(-np.pi, np.pi, n),
+                  "z": rng.uniform(-1000, 1000, n),
+                  "particle_id": rng.integers(0, 300, n)})
+    cuts = tdbl.SegmentCuts(phi_slope_max=0.01, phi_slope_outer_max=0.005,
+                            z0_max=300.0)
+    on_card = tdbl.construct_graph(hits, tdbl.adjacent_layer_pairs(10),
+                                   cuts=cuts, sort_by_layer=True)
+    on_cpu = tdbl.construct_graph(hits, tdbl.adjacent_layer_pairs(10),
+                                  cuts=cuts, sort_by_layer=True, device="cpu")
+    assert on_card.n_edge > 0
+    for f in ("x", "senders", "receivers", "y"):
+        assert torch.equal(getattr(on_card, f), getattr(on_cpu, f)), f

@@ -21,21 +21,55 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import gnn_fpga_tpu_torch\n"
         "from gnn_fpga_tpu_torch.core import graph, batching, prefetch, capture\n"
-        "from gnn_fpga_tpu_torch.data import toy2d\n"
+        "from gnn_fpga_tpu_torch.data import toy2d, table, trackml_io\n"
+        "from gnn_fpga_tpu_torch.data import doublets, native, selection\n"
+        "from gnn_fpga_tpu_torch.data import acts, muon, full_events\n"
+        "from gnn_fpga_tpu_torch.data import candidates, exploration\n"
         "from gnn_fpga_tpu_torch.ops import segment, dense_incidence, blocked\n"
         "from gnn_fpga_tpu_torch.ops.cuda import spmm, segment_sum, _build\n"
+        "from gnn_fpga_tpu_torch.ops.cuda import doublets as dop\n"
         "from gnn_fpga_tpu_torch.models import mpnn, gcn, baselines\n"
         "from gnn_fpga_tpu_torch.utils import serialization, profiling\n"
-        "from gnn_fpga_tpu_torch.cli import train, infer\n"
+        "from gnn_fpga_tpu_torch.utils import plotting\n"
+        "from gnn_fpga_tpu_torch.cli import train, infer, plot_graph\n"
+        "from gnn_fpga_tpu_torch.cli import prepare_graphs, prepare_muon_graphs\n"
         "from gnn_fpga_tpu_torch.train import trainer, checkpoint, metrics\n"
         "from gnn_fpga_tpu_torch.compress import pruning\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'optax', 'orbax', 'gnn_fpga_tpu')]\n"
+        "       ('jax', 'jaxlib', 'optax', 'orbax', 'gnn_fpga_tpu', 'pandas',\n"
+        "        'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_prepare_graphs_runs_without_pandas_or_jax(tmp_path):
+    """The port's prepare CLI on one small TrackML event written by the
+    smoke's numpy writer, on the CPU, in a process of its own: it writes
+    graphs, and neither pandas, JAX nor the JAX package is imported."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "from gnn_fpga_tpu_torch.cli import prepare_graphs\n"
+        f"d = {str(tmp_path)!r}\n"
+        "chip_smoke.write_trackml_events(d, 1, 300, seed=0)\n"
+        "graphs = prepare_graphs.main(['--input-dir', d, '--output-dir',\n"
+        "                              d + '/out', '--device', 'cpu',\n"
+        "                              '--pt-min', '0.5'])\n"
+        "assert graphs, 'no graph'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('pandas', 'jax', 'jaxlib', 'gnn_fpga_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(graphs))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 0
+    assert len(list((tmp_path / "out").glob("graph*.npz"))) == \
+        int(proc.stdout.split()[-1])
 
 
 def test_chip_smoke_fails_without_a_gpu():

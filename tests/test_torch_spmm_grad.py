@@ -209,7 +209,7 @@ def test_bwd_wrappers_do_not_count_on_cpu():
     assert set(before) == {"iteration_pair", "aggregate_pair", "gather_pair",
                            "iteration_pair_bwd", "aggregate_pair_bwd",
                            "gather_pair_bwd", "spmm", "sddmm", "sddmm_dual",
-                           "sorted_segment_sum"}
+                           "sorted_segment_sum", "select_segments"}
 
 
 # ---------------------------------------------------------------------------
