@@ -72,7 +72,23 @@ it:
    sddmm_dual) on plans padded to a static capacity against the unpadded
    plans bit for bit at the fullevent shape; a batch of another signature
    raising;
-12. prepare: 4 synthetic TrackML-format events at mu200 density (10,000
+12. parallel: the fullevent packed graphs partitioned at P = 1 (a
+   world of one over NCCL in this process): the sharded forward's
+   probabilities and summed gradients, fused and unfused, against the
+   sparse route; 32 captured Adam steps of ``Trainer(strategy=
+   "partitioned")`` (the fused step's 6 + 1 + 6 + 1 launches of
+   ``iteration_pair``, ``gather_pair`` and their backwards on the
+   shard's extended table), 4 unfused steps, its eval loss and predict captured, its step
+   timed beside the single-device fused step, and 5 ``strategy="dp"``
+   steps on the 36-sector batches equal to the single device's; then 2
+   and 4 ranks spawned on the one card over gloo: each shard's
+   probabilities gathered and the summed gradients against the sparse
+   route, the halo sizes, on an unpacked event whose shards pull whole
+   layers the f32 fused route's halo-reading edges and gradients
+   against one device's, 8 eager steps with the losses and weights
+   identical on every rank, and 2 ranks of dp in f32 against the single
+   device (times of ranks that share one card measure no scaling);
+13. prepare: 4 synthetic TrackML-format events at mu200 density (10,000
    particles, ~10^4 hits a barrel layer, 10% noise hits, particle ids
    above 2^53) written with numpy; the doublet cross-join kernel
    (``csrc/doublets.cu``) against its plain version, bit for bit, on one
@@ -104,9 +120,11 @@ It prints a JSON line of per-kernel results and ends with one JSON line
 ``{"ok": true, "device": {...}}`` when every phase passed; any failure
 exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
 three fused requests, three fused training steps, one blocked training
-step and three NodeClassifier training steps to PATH.  ``--phase NAME``
-(kernels, iteration, rows or stream, on the first packed graph, or
-prepare; repeatable) runs only those phases and prints no result line:
+step, three NodeClassifier training steps and three replayed
+partitioned (P = 1) and single-device steps to PATH.  ``--phase NAME``
+(kernels, iteration, rows or stream, on the first packed graph,
+prepare or parallel; repeatable) runs only those phases and prints no
+result line:
 copied into an older checkout, it measures that tree's kernels the same
 way.
 """
@@ -116,9 +134,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -254,6 +275,22 @@ PREP_Z0_SIGMA, PREP_ETA_MAX = 55.0, 1.0
 # 4, one validation batch, 7 train steps an epoch, the fullevent widths
 PREP_BATCH, PREP_VALID_FRAC, PREP_EPOCHS = 4, 0.125, 2
 PREP_TRAIN_STEPS, PREP_VALID_BATCHES = 7, 1
+# The parallel phase: 32 captured partitioned steps at P = 1 over NCCL (as
+# the training phase's), N_PART_UNFUSED_STEPS on the unfused body, DP_STEPS
+# dp steps on the 36-sector batches; then PARALLEL_STEPS eager steps in
+# each spawned gloo world on the one card.
+PARALLEL_WORLDS = (2, 4)
+PARALLEL_STEPS, N_PART_UNFUSED_STEPS, DP_STEPS = 8, 4, 5
+PARALLEL_RANK_TIMEOUT_S = 300
+# The halo check of the gloo worlds: one unpacked Toy2D event of the
+# fullevent's layers and kNN with HALO_EVENT_TRACKS tracks (the
+# partitioned example's mu200-scale event).  Its rows are layer-ordered,
+# so at P = 2 and 4 every shard cut falls between two layers and a shard
+# pulls a whole layer's rows from its neighbour.  f32, held to the
+# single-device fused route at SHARD_F32_PROB_TOL (the sharded forward's
+# tolerance in the CPU tests) and F32_GRAD_TOL.
+HALO_EVENT_TRACKS = 400
+SHARD_F32_PROB_TOL = (1e-4, 1e-5)
 # The doublet kernel's bound: the H100 SXM's published f64 rate outside
 # the tensor cores (NVIDIA's data sheet, at 700 W), and the f64 operations
 # of one pair evaluation (3 subtractions, 2 divisions, 1 multiplication,
@@ -2515,6 +2552,488 @@ def phase_capture(device, graphs, unpadded) -> None:
                   flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# The parallel phase: graph and data parallelism (gnn_fpga_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+def partition_all(graphs, n_parts: int) -> list:
+    """``graphs`` (the packed requests) partitioned into ``n_parts``
+    receiver-owned shards with plans, pinned to one edge count, halo size
+    and plan capacity, as the train CLI pins a dataset's: one static
+    signature for the captured steps."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.parallel import partition as part
+
+    cpu = [g.replace(plans=None).to("cpu") for g in graphs]
+    free = [part.partition_graph(g, n_parts, plans=True) for g in cpu]
+    pins = dict(edge_capacity=max(pg.senders.shape[1] for pg in free),
+                halo_capacity=max(pg.halo_size for pg in free))
+    cap = part.shard_capacity(*(part.partition_graph(
+        g, n_parts, plans=True, **pins) for g in cpu))
+    return [part.partition_graph(g, n_parts, plans=True, capacity=cap,
+                                 **pins) for g in cpu]
+
+
+def halo_needs(pg) -> list:
+    """``[p][q]``: the distinct rows shard ``p``'s real edges pull from
+    shard ``q`` (the padded halo is ``pg.halo_size`` a pair)."""
+    s = pg.halo_size
+    out = []
+    for p in range(pg.n_parts):
+        ext = pg.senders_ext[p][pg.edge_mask[p] > 0]
+        out.append([int(torch.unique(ext[(ext >= pg.n_local + q * s)
+                                         & (ext < pg.n_local + (q + 1) * s)]
+                                     ).numel()) for q in range(pg.n_parts)])
+    return out
+
+
+def check_partitioned(label, probs, grads, ref_probs, ref_grads) -> tuple:
+    """bf16 probabilities and summed gradients of the sharded route
+    against its sparse reference (PERF.md section 2's bounds); returns the
+    readings."""
+    diff = (probs - ref_probs).abs()
+    worst_max, worst_mean = diff.max().item(), diff.mean().item()
+    reading, name = grad_reading(grads, ref_grads, torch.bfloat16)
+    ok = (worst_max <= BF16_PROB_MAX_ABS and worst_mean <= BF16_PROB_MEAN_ABS
+          and reading <= BF16_GRAD_REL and torch.isfinite(probs).all())
+    print(f"  {label}: bf16 probs vs sparse route max|dp|={worst_max:.3e} "
+          f"(tol {BF16_PROB_MAX_ABS:g}) mean|dp|={worst_mean:.3e} (tol "
+          f"{BF16_PROB_MEAN_ABS:g}); grads ||err|| / ||ref|| {reading:.3e} "
+          f"(most from {name}; tol {BF16_GRAD_REL:g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"parallel: {label} disagrees with the sparse route")
+    return worst_max, reading
+
+
+def sharded_grads(model, shard, comm):
+    """Parameter gradients of the partitioned loss, summed over ``comm``."""
+    from gnn_fpga_tpu_torch.parallel import data_parallel as dp
+    from gnn_fpga_tpu_torch.parallel import partition as part
+
+    model.zero_grad(set_to_none=True)
+    objective, _ = part.sharded_loss(model, shard, comm,
+                                     pos_weight=POS_WEIGHT)
+    objective.backward()
+    dp.sum_gradients(model.parameters(), comm)
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _loss_curve(losses, what) -> None:
+    k = max(1, len(losses) // 4)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    print(f"  {what} losses: {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"mean of the first {k} {first:.4f}, of the last {k} {last:.4f}",
+          flush=True)
+    if not torch.isfinite(torch.tensor(losses)).all():
+        fail(f"parallel: a {what} loss is not finite")
+    if not last < first:
+        fail(f"parallel: the {what} loss did not fall")
+
+
+def dp_batches(device) -> list:
+    """DP_STEPS batches of 36 fullevent sectors (bench.py's "b36", the
+    blocks dropped: the dense route)."""
+    return [make_sector_batch(seed, "cpu").replace(blocks=None).to(device)
+            for seed in range(DP_STEPS)]
+
+
+def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
+    """Graph and data parallelism on the card: P = 1 over NCCL in this
+    process (the captured partitioned step with its collectives, its
+    eval loss and predict, checked and timed against the single-device
+    step; dp against single), then P = 2 and 4 over gloo in ranks spawned
+    on the one card (:func:`run_parallel_world`).  Returns the kernel
+    launches of its main path: the captured steps here and the ranks'
+    eager steps."""
+    import torch.distributed as dist
+
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.parallel import multihost
+    from gnn_fpga_tpu_torch.parallel import partition as part
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tag = f"[{card()}]"
+    multihost.initialize_single("nccl")
+    gmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,))
+    comm = part.graph_comm(gmesh)
+    t = time.perf_counter()
+    pgs = [pg.to(device) for pg in partition_all(unpadded, 1)]
+    pg = pgs[0]
+    it = pg.shard(0).plans.items
+    print(f"parallel: world of 1 ({dist.get_backend()}); {N_REQUESTS} "
+          f"packed graphs partitioned in {time.perf_counter() - t:.2f} s: "
+          f"{pg.n_local} local rows + {pg.send_idx.shape[1]} halo slots, "
+          f"{pg.senders.shape[1]} edges a shard, plans padded to "
+          f"{it.n_recv} + {it.n_item - it.n_recv} items", flush=True)
+    cfg = mpnn.SegmentClassifierConfig(
+        input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+        compute_dtype=torch.bfloat16, aggregation="pallas")
+    model = mpnn.init_segment_classifier(
+        cfg, torch.Generator().manual_seed(11), device=device)
+    ref, at = sparse_reference(model, device, torch.bfloat16)
+    for label, kw in (("fused", {}), ("unfused",
+                                      dict(fused_iteration=False))):
+        m = variant_of(model, device, **kw)
+        for i in range(2):
+            g, shard = unpadded[i], pgs[i].shard(0)
+            em = g.edge_mask > 0
+            n_real = int(em.sum())
+            with torch.no_grad():
+                probs = torch.sigmoid(part.sharded_logits(m, shard, comm))
+                want = torch.sigmoid(ref(at(g)))[em]
+            check_partitioned(f"P = 1 {label}, graph {i}", probs[:n_real],
+                              sharded_grads(m, shard, comm), want,
+                              _grads(ref, at(g), "edge", POS_WEIGHT))
+
+    tcfg = TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
+    trainer = Trainer(variant_of(model, device), tcfg,
+                      strategy="partitioned", mesh=gmesh)
+    unfused = Trainer(variant_of(model, device, fused_iteration=False),
+                      tcfg, strategy="partitioned", mesh=gmesh)
+    dmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.DATA_AXIS,))
+    dense = mpnn.init_segment_classifier(
+        dataclasses.replace(cfg, aggregation="dense"),
+        torch.Generator().manual_seed(12), device=device)
+    dp_trainer = Trainer(variant_of(dense, device), tcfg, strategy="dp",
+                         mesh=dmesh)
+    batches = dp_batches(device)
+    spmm.reset_launch_counts()
+    # --- the main path: 32 captured partitioned steps, unfused steps, dp
+    losses, step_ms = [], []
+    for i in range(N_STEPS):
+        t = time.perf_counter()
+        losses.append(float(trainer.run_steps([pgs[i % N_REQUESTS]])[0]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    fused_counts = spmm.launch_counts()
+    unfused_losses = [float(x) for x in unfused.run_steps(
+        [pgs[i % N_REQUESTS] for i in range(N_PART_UNFUSED_STEPS)])]
+    unfused_counts = {k: v - fused_counts[k]
+                      for k, v in spmm.launch_counts().items()}
+    dp_losses = dp_trainer.run_steps(batches)
+    launches = spmm.launch_counts()
+    # --- checks (not counted)
+    per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
+    per_unfused = {k: v / N_PART_UNFUSED_STEPS
+                   for k, v in unfused_counts.items()}
+    print(f"  launches per partitioned step: fused {per_step}; unfused "
+          f"{per_unfused}", flush=True)
+    if per_step != expected_counts(iteration_pair=N_ITERS, gather_pair=1,
+                                   iteration_pair_bwd=N_ITERS,
+                                   gather_pair_bwd=1):
+        fail(f"parallel: the partitioned steps launched {per_step} a step")
+    if per_unfused != expected_counts(gather_pair=N_ITERS + 1,
+                                      gather_pair_bwd=N_ITERS + 1,
+                                      aggregate_pair=N_ITERS,
+                                      aggregate_pair_bwd=N_ITERS):
+        fail(f"parallel: the unfused partitioned steps launched "
+             f"{per_unfused} a step")
+    _loss_curve(losses, "P = 1 captured partitioned")
+    if not all(map(math.isfinite, unfused_losses)):
+        fail("parallel: an unfused partitioned loss is not finite")
+    single = Trainer(variant_of(dense, device), tcfg).run_steps(batches)
+    print(f"  dp (world of 1) losses {' '.join(f'{x:.6f}' for x in dp_losses)}"
+          f"; single {' '.join(f'{x:.6f}' for x in single)}", flush=True)
+    compare("dp losses (world of 1) vs single", torch.from_numpy(dp_losses),
+            torch.from_numpy(single), CAPTURE_RTOL, 0.0)
+    vloss = [trainer._eval_loss(pgs[0]) for _ in range(2)]
+    probs, _, _ = trainer.predict(iter(pgs[:2]), 2)
+    kinds = sorted({k for k, _ in trainer._captured})
+    print(f"  captured calls of the partitioned Trainer: {kinds} (one "
+          f"signature each: {len(trainer._captured)}); eval loss "
+          f"{vloss[0]:.6f}, replayed {vloss[1]:.6f}", flush=True)
+    if kinds != ["eval", "predict", "train"] or len(trainer._captured) != 3:
+        fail("parallel: the partitioned step, eval loss and predict were "
+             "not each captured once")
+    if vloss[0] != vloss[1] or not math.isfinite(vloss[0]) \
+            or not torch.isfinite(torch.from_numpy(probs)).all():
+        fail("parallel: the captured eval loss or predict is malformed")
+
+    # --- P = 1 partitioned step against the single-device fused step
+    fused_single = Trainer(variant_of(model, device), tcfg)
+    fused_single.run_steps(graphs[:1])
+    times = {"partitioned P = 1": [], "single device": []}
+    for _ in range(2):
+        for label, tr, batch in (("partitioned P = 1", trainer, pgs[0]),
+                                 ("single device", fused_single,
+                                  graphs[0])):
+            t = time.perf_counter()
+            tr.run_steps([batch] * 20)
+            times[label].append((time.perf_counter() - t) / 20 * 1e3)
+    print(f"  {tag} fused bf16 train step, 20 replays with one readback, "
+          f"twice in turns: " + "; ".join(
+              f"{k} {' / '.join(f'{x:.3f}' for x in v)} ms"
+              for k, v in times.items())
+          + f"; first partitioned steps {step_times(step_ms)}", flush=True)
+    for label, run in (
+            ("partitioned P = 1", lambda: trainer.run_steps([pgs[0]] * 3)),
+            ("single device", lambda: fused_single.run_steps(graphs[:1] * 3))):
+        wall, busy = profiled(run, profile_path and (
+            profile_path, f"3 replayed {label} fused bf16 train steps"))
+        print(f"  {tag} {label} step, replayed: device time {busy / 3:.3f} "
+              f"ms (torch.profiler over 3 replays; wall {wall / 3:.3f} ms "
+              f"with the profiler on)", flush=True)
+    dist.destroy_process_group()
+
+    for world in PARALLEL_WORLDS:
+        rank_launches = run_parallel_world(world, device, model, unpadded[0],
+                                           dense, batches)
+        launches = {k: launches[k] + rank_launches[k] for k in launches}
+    return launches
+
+
+def halo_event():
+    """The halo check's graph (HALO_EVENT_TRACKS), on the host, no plans."""
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    cfg = toy2d.Toy2DConfig(n_layers=N_LAYERS, n_tracks=HALO_EVENT_TRACKS,
+                            seed=0)
+    return G.unbatch_graphs(toy2d.make_knn_segment_graphs(cfg, 1, k=K_NN))[0]
+
+
+def run_parallel_world(world, device, model, g, dense, batches) -> dict:
+    """P = ``world`` ranks on the one card over gloo, spawned: each shard's
+    logits gathered and the summed gradients against the sparse
+    reference; on :func:`halo_event`, whose shards exchange real halos,
+    the f32 fused route's probabilities of the edges that read halo rows
+    and its summed gradients against the single-device fused route;
+    PARALLEL_STEPS eager steps (finite, falling, the weights identical on
+    every rank), and with 2 ranks a dp run against the single device, in
+    f32.  Times are printed labelled: several ranks share one card, so
+    they measure the mechanics, not scaling.  Returns the ranks' launches
+    in their steps."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from gnn_fpga_tpu_torch.core import graph as G
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    ref, at = sparse_reference(model, device, torch.bfloat16)
+    em = g.edge_mask > 0
+    with torch.no_grad():
+        ref_probs = torch.sigmoid(ref(at(g)))[em].cpu()
+        single_probs = torch.sigmoid(model(g))[em].float().cpu()
+    ref_grads = {k: v.cpu()
+                 for k, v in _grads(ref, at(g), "edge", POS_WEIGHT).items()}
+    event = halo_event()
+    m32, on_card = (variant_of(model, device, compute_dtype=None),
+                    G.attach_plans(event).to(device))
+    with torch.no_grad():
+        event_probs = torch.sigmoid(m32(on_card)).cpu()
+    event_grads = {k: v.cpu() for k, v in
+                   _grads(m32, on_card, "edge", POS_WEIGHT).items()}
+    tcfg = dict(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT)
+    f32 = variant_of(dense, device, compute_dtype=None)
+    inputs = dict(graph=g.replace(plans=None).to("cpu"), event=event,
+                  tcfg=tcfg,
+                  state={k: v.cpu() for k, v in model.state_dict().items()},
+                  cfg=dataclasses.asdict(model.cfg) | {"activation": None},
+                  device=device.type, dp=None)
+    if world == 2:
+        single = Trainer(variant_of(f32, device), TrainConfig(**tcfg),
+                         capture=False).run_steps(batches)
+        inputs["dp"] = dict(
+            state={k: v.cpu() for k, v in f32.state_dict().items()},
+            batches=[b.to("cpu") for b in batches])
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(inputs, f"{d}/inputs.pt")
+        ctx = mp.get_context("spawn")
+        t = time.perf_counter()
+        procs = [ctx.Process(target=parallel_rank, args=(r, world, d))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(PARALLEL_RANK_TIMEOUT_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [Path(f"{d}/error_{r}.txt").read_text()
+                  for r in range(world) if os.path.exists(f"{d}/error_{r}.txt")]
+        if errors or any(p.exitcode != 0 for p in procs):
+            fail(f"parallel: a rank of the {world}-rank world failed:\n"
+                 + "\n".join(errors))
+        outs = [torch.load(f"{d}/out_{r}.pt", weights_only=False)
+                for r in range(world)]
+    wall = time.perf_counter() - t
+    o = outs[0]
+    print(f"parallel: {world} ranks on one card over gloo ([{card()}] "
+          f"{wall:.1f} s with the spawn; gloo took the CUDA tensors); "
+          f"packed graph: halo size a pair {o['halo']} (padded), rows pulled [p][q] "
+          f"{o['needs']}; {o['n_local']} local rows, {o['n_edge']} edges a "
+          f"shard", flush=True)
+    probs = o["probs"][o["edge_mask"] > 0]
+    check_partitioned(f"P = {world} fused", probs, o["grads"], ref_probs,
+                      ref_grads)
+    print(f"  P = {world} fused bf16 vs the single-device fused route: "
+          f"max|dp|={(probs - single_probs).abs().max().item():.3e}",
+          flush=True)
+    check_halo_event(world, o, event, event_probs, event_grads)
+    for r, other in enumerate(outs[1:], 1):
+        if other["losses"] != o["losses"] or not torch.equal(
+                other["params"], o["params"]):
+            fail(f"parallel: rank {r} of {world} differs from rank 0 in its "
+                 "losses or weights")
+    _loss_curve(o["losses"], f"P = {world} eager partitioned")
+    print(f"  losses and weights identical on all {world} ranks; "
+          f"[{card()}] eager step {' / '.join(f'{x:.2f}' for x in o['step_ms'])}"
+          f" ms on rank 0 ({world} ranks sharing one card under gloo: "
+          f"mechanics only, no scaling measured)", flush=True)
+    if o["dp_losses"] is not None:
+        print(f"  dp, 2 ranks, f32: losses "
+              f"{' '.join(f'{x:.6f}' for x in o['dp_losses'])}; single "
+              f"{' '.join(f'{x:.6f}' for x in single)}", flush=True)
+        compare("dp losses (2 ranks) vs single", torch.tensor(o["dp_losses"]),
+                torch.from_numpy(single), CAPTURE_RTOL, 0.0)
+    counts = {k: sum(out["launches"][k] for out in outs)
+              for k in o["launches"]}
+    steps = PARALLEL_STEPS * world
+    expect = expected_counts(iteration_pair=N_ITERS * steps,
+                             gather_pair=steps,
+                             iteration_pair_bwd=N_ITERS * steps,
+                             gather_pair_bwd=steps)
+    if counts != expect:
+        fail(f"parallel: the {world} ranks' steps launched {counts}, "
+             f"expected {expect}")
+    return counts
+
+
+def check_halo_event(world, o, event, want_probs, want_grads) -> None:
+    """The gloo world's f32 fused route on :func:`halo_event` (rank 0's
+    output ``o``) against the single-device fused route: the
+    probabilities of the edges whose sender is a halo row, every edge's,
+    and the summed parameter gradients elementwise."""
+    n_local, real = o["event_n_local"], o["event_edge_mask"] > 0
+    em = event.edge_mask > 0
+    # the shards' real edges, concatenated, are the graph's in the order
+    # of their receivers' shards
+    order = torch.sort(event.receivers[em] // n_local, stable=True).indices
+    want = want_probs[em][order]
+    got = o["event_probs"][real]
+    reads_halo = (o["event_senders_ext"] >= n_local)[real]
+    print(f"  halo event ({event.n_node} rows, {int(em.sum())} edges): "
+          f"{n_local} local rows a shard, halo size a pair "
+          f"{o['event_halo']} (padded), rows pulled [p][q] "
+          f"{o['event_needs']}; {int(reads_halo.sum())} edges read a halo "
+          f"row", flush=True)
+    if not reads_halo.any():
+        fail(f"parallel: no edge of the {world}-way halo event reads a "
+             "halo row")
+    compare(f"P = {world} f32 fused, halo-reading edges' probs vs the "
+            f"single-device fused route", got[reads_halo], want[reads_halo],
+            *SHARD_F32_PROB_TOL)
+    compare(f"P = {world} f32 fused, every edge's probs vs the "
+            f"single-device fused route", got, want, *SHARD_F32_PROB_TOL)
+    reading, name = grad_reading(o["event_grads"], want_grads, None)
+    ok = reading <= 1.0
+    print(f"  P = {world} f32 fused, summed gradients vs the single-device "
+          f"fused route: max |err| / (atol + rtol |ref|) = {reading:.3e} "
+          f"(most in {name}; at most 1 within rtol {F32_GRAD_TOL[0]:g}, "
+          f"atol {F32_GRAD_TOL[1]:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"parallel: the {world}-way halo event's gradients disagree "
+             "with the single-device route")
+
+
+def parallel_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of :func:`run_parallel_world` (a spawned process): joins a
+    gloo group on the one card and writes its results."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    inputs = torch.load(f"{directory}/inputs.pt", weights_only=False)
+    if inputs["device"] == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = parallel_rank_work(rank, world, inputs)
+        torch.save(out, f"{directory}/out_{rank}.pt")
+    except BaseException:
+        with open(f"{directory}/error_{rank}.txt", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_rank_work(rank, world, inputs) -> dict:
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.parallel import partition as part
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    device = torch.device(inputs["device"])
+    gmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,),
+                               device=device.type)
+    comm = part.graph_comm(gmesh)
+    cfg = mpnn.SegmentClassifierConfig(**(inputs["cfg"]
+                                          | {"activation": torch.tanh}))
+
+    def fresh(state, c=cfg):
+        m = mpnn.init_segment_classifier(c, torch.Generator(), device=device)
+        m.load_state_dict(state)
+        return m
+
+    pg = part.partition_graph(inputs["graph"], world, plans=True)
+    shard = pg.shard(rank).to(device)
+    model = fresh(inputs["state"])
+    with torch.no_grad():
+        probs = comm.all_gather(torch.sigmoid(
+            part.sharded_logits(model, shard, comm)))
+    grads = sharded_grads(model, shard, comm)
+    ev = part.partition_graph(inputs["event"], world, plans=True)
+    ev_shard = ev.shard(rank).to(device)
+    m32 = fresh(inputs["state"], dataclasses.replace(cfg, compute_dtype=None))
+    with torch.no_grad():
+        ev_probs = comm.all_gather(torch.sigmoid(
+            part.sharded_logits(m32, ev_shard, comm)))
+    ev_grads = sharded_grads(m32, ev_shard, comm)
+    tcfg = TrainConfig(**inputs["tcfg"])
+    trainer = Trainer(fresh(inputs["state"]), tcfg, strategy="partitioned",
+                      mesh=gmesh, capture=False)
+    spmm.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(PARALLEL_STEPS):
+        t = time.perf_counter()
+        losses.append(float(trainer.run_steps([shard])[0]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = spmm.launch_counts()
+    dp_losses = None
+    if inputs["dp"] is not None:
+        dmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.DATA_AXIS,),
+                                   device=device.type)
+        dcfg = dataclasses.replace(cfg, aggregation="dense",
+                                   compute_dtype=None)
+        dp = Trainer(fresh(inputs["dp"]["state"], dcfg), tcfg, strategy="dp",
+                     mesh=dmesh, capture=False)
+        dp_losses = [float(x) for x in dp.run_steps(inputs["dp"]["batches"])]
+    return dict(
+        probs=probs.float().cpu(), edge_mask=pg.edge_mask,
+        grads={k: v.cpu() for k, v in grads.items()}, losses=losses,
+        params=torch.cat([p.detach().reshape(-1).cpu()
+                          for p in trainer.model.parameters()]),
+        step_ms=step_ms, launches=launches,
+        halo=pg.halo_size, needs=halo_needs(pg), n_local=pg.n_local,
+        n_edge=pg.senders.shape[1], dp_losses=dp_losses,
+        event_probs=ev_probs.cpu(), event_edge_mask=ev.edge_mask,
+        event_senders_ext=ev.senders_ext, event_n_local=ev.n_local,
+        event_halo=ev.halo_size, event_needs=halo_needs(ev),
+        event_grads={k: v.cpu() for k, v in ev_grads.items()})
+
+
 def profiled(run, table_to=None) -> tuple:
     """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler;
     ``table_to``: ``(path, what)`` appends the profiler's table to
@@ -2563,10 +3082,10 @@ def main():
     ap.add_argument("--profile", metavar="PATH",
                     help="also write torch.profiler tables to PATH")
     ap.add_argument("--phase", action="append",
-                    choices=tuple(MEASUREMENTS) + ("prepare",),
+                    choices=tuple(MEASUREMENTS) + ("prepare", "parallel"),
                     help="run only this phase (a measurement phase on the "
-                         "first packed graph, or prepare; repeatable): no "
-                         "result line")
+                         "first packed graph, prepare or parallel; "
+                         "repeatable): no result line")
     args = ap.parse_args()
     kind = phase_device()
     device = torch.device("cuda", 0)
@@ -2574,11 +3093,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     if args.phase:
-        g = (make_request(0, device) if set(args.phase) - {"prepare"}
-             else None)
+        g = (make_request(0, device)
+             if set(args.phase) - {"prepare", "parallel"} else None)
         for name in args.phase:
             if name == "prepare":
                 phase_prepare(device)
+            elif name == "parallel":
+                unpadded = [make_request(seed, device)
+                            for seed in range(N_REQUESTS)]
+                phase_parallel(device, pad_to_covering(unpadded), unpadded,
+                               args.profile)
             else:
                 MEASUREMENTS[name](g)
         return
@@ -2602,6 +3126,7 @@ def main():
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
     phase_capture(device, graphs, unpadded)
+    paths += (phase_parallel(device, graphs, unpadded, args.profile),)
     prep_launches, kernels[("select_segments", torch.bfloat16)] = \
         phase_prepare(device)
     paths += (prep_launches,)

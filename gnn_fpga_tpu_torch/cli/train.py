@@ -22,10 +22,23 @@ package's infer CLI reads it) and ``losses.npz``.
 - ``--device``: the card unless ``--device cpu`` is given; with no card
   and no ``--device`` the CLI raises.
 
-``--strategy dp`` and ``partitioned`` are not ported yet: they raise
-``NotImplementedError``.
+- ``--strategy dp``: data parallel, each rank its slice of every batch;
+  ``--strategy partitioned``: each packed batch partitioned into one
+  receiver-owned shard a rank (``parallel/partition.py``), with the
+  fused kernels on each shard's extended table under ``--aggregation
+  pallas`` and segment sums under ``auto`` or ``sparse``.  Launch them
+  with ``torchrun --nproc-per-node N``; without a launcher they run as a
+  world of one.  ``--backend``: NCCL on the card (one card a rank), gloo
+  on the CPU; several ranks on one card need ``--backend gloo``, whose
+  steps run eagerly (gloo's collectives cannot be captured).  Every rank
+  builds the same batches; rank 0 writes the outputs.  Before training
+  the partitioned path scans every split's batches for the largest shard
+  edge count, halo and plan counts and pins them with 1.25x headroom
+  (:class:`PartitionSetup`); a batch over a pin raises.
 
 Usage: python -m gnn_fpga_tpu_torch.cli.train --input-dir ... [--output-dir ...]
+       torchrun --nproc-per-node 4 -m gnn_fpga_tpu_torch.cli.train \
+           --input-dir ... --strategy partitioned --aggregation pallas
 """
 
 from __future__ import annotations
@@ -81,7 +94,12 @@ def parse_args(argv=None):
             help="bf16 compute dtype (f32 master weights)")
     add_arg("--strategy", default="single",
             choices=["single", "dp", "partitioned"],
-            help="dp and partitioned are not ported yet")
+            help="dp = data parallel over the ranks; partitioned = each "
+                 "batch's packed graph split into one shard a rank")
+    add_arg("--backend", default=None, choices=["nccl", "gloo"],
+            help="collectives of dp and partitioned (default: nccl on the "
+                 "card, gloo on the CPU; several ranks on one card need "
+                 "gloo)")
     add_arg("--lr-schedule", default="constant",
             choices=["constant", "cosine"])
     add_arg("--prefetch", type=int, default=2,
@@ -192,6 +210,52 @@ class PlanSetup:
         return transform
 
 
+class PartitionSetup:
+    """The static capacities of the partitioned path: every split's
+    batches (not only the train split's) partitioned once, in order, for
+    the largest shard edge count, per-pair halo and plan counts, each
+    pinned with 1.25x headroom (the plan counts by
+    ``PlanCapacity.with_headroom``), so that one captured step
+    serves every batch; shuffled batches regroup graphs, and a batch over
+    a pin raises rather than being captured anew."""
+
+    def __init__(self, splits, bucket: batching.BucketSpec, batch_size: int,
+                 n_parts: int, plans: bool):
+        from gnn_fpga_tpu_torch.parallel import partition as part
+
+        self.n_parts, self.plans = n_parts, plans
+        batches = []
+        for graphs in splits:
+            n = len(graphs) // batch_size
+            if n:
+                gen = batching.batch_generator(graphs, batch_size, bucket,
+                                               shuffle=False, packed=True)
+                batches += [next(gen) for _ in range(n)]
+        max_e = s_pair = 1
+        for b in batches:
+            pg = part.partition_graph(b, n_parts)
+            max_e = max(max_e, pg.senders.shape[-1])
+            s_pair = max(s_pair, pg.halo_size)
+        self.edge_capacity = _round_up(int(max_e * 1.25), 8)
+        self.halo_capacity = _round_up(int(s_pair * 1.25), 8)
+        self.capacity = None
+        if plans:
+            cover = part.shard_capacity(*(
+                part.partition_graph(b, n_parts, plans=True,
+                                     edge_capacity=self.edge_capacity,
+                                     halo_capacity=self.halo_capacity)
+                for b in batches))
+            self.capacity = cover.with_headroom(1.25)
+
+    def transform(self, batch, idx):
+        from gnn_fpga_tpu_torch.parallel import partition as part
+
+        return part.partition_graph(
+            batch, self.n_parts, plans=self.plans,
+            edge_capacity=self.edge_capacity,
+            halo_capacity=self.halo_capacity, capacity=self.capacity)
+
+
 def _on_device(gen, device):
     for batch in gen:
         yield batch.to(device)
@@ -203,11 +267,38 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     if args.show_config:
         logging.info("Command line config: %s", args)
-    if args.strategy != "single":
-        raise NotImplementedError(
-            f"--strategy {args.strategy} is not ported yet (ROADMAP Queue 1 "
-            "item 12, 'Parallelism')")
+    agg = args.aggregation
+    if args.strategy == "partitioned" and agg in ("blocked", "dense"):
+        # the JAX CLI partitions such batches and drops the route unsaid
+        raise ValueError(f"--aggregation {agg} does not combine with "
+                         "--strategy partitioned; use pallas, sparse or auto")
+    if agg == "pallas" and args.strategy == "dp":
+        raise ValueError("--aggregation pallas (packed batches) does not "
+                         "combine with --strategy dp; use partitioned")
     device = default_device(args.device)
+    mesh = None
+    created_world = False
+    if args.strategy != "single":
+        from torch import distributed as dist
+
+        from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+        from gnn_fpga_tpu_torch.parallel import multihost
+
+        backend = args.backend or multihost.default_backend(device)
+        created_world = not dist.is_initialized()
+        multihost.initialize(backend=backend)
+        multihost.initialize_single(backend)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        axis = (mesh_lib.DATA_AXIS if args.strategy == "dp"
+                else mesh_lib.GRAPH_AXIS)
+        mesh = mesh_lib.make_mesh(axis_names=(axis,), device=device.type)
+        n_dev = mesh.size(0)
+        logging.info("%s over %i ranks (%s)", args.strategy, n_dev,
+                     dist.get_backend())
+        if args.strategy == "dp" and args.batch_size % n_dev:
+            raise ValueError(f"--batch-size {args.batch_size} not divisible "
+                             f"by {n_dev} ranks for --strategy dp")
 
     logging.info("Loading input graphs")
     graphs, layer_arrays = load_graph_files(args.input_dir, args.n_samples)
@@ -230,8 +321,8 @@ def main(argv=None):
     logging.info("Test set size:  %i", len(test_idx))
 
     # --- route selection ---------------------------------------------------
-    agg = args.aggregation
-    packed = agg == "pallas"
+    partitioned = args.strategy == "partitioned"
+    packed = agg == "pallas" or partitioned
     # The JAX CLI's multiples, so that both packages pad to one shape.
     edge_mult = 256 if packed else 128
     if args.n_buckets > 1 and not packed:
@@ -252,11 +343,23 @@ def main(argv=None):
                      "block_n %i", blocked_setup.n_layers, args.group,
                      blocked_setup.block_e, blocked_setup.block_n)
 
-    plan_setup = PlanSetup(graphs, bucket, bs) if packed else None
-    if plan_setup is not None:
+    plan_setup = part_setup = None
+    if partitioned:
+        part_setup = PartitionSetup(
+            [[graphs[i] for i in idx] for idx in (train_idx, valid_idx,
+                                                  test_idx)],
+            bucket, bs, n_dev, plans=agg == "pallas")
+        logging.info("Partitioned over %i ranks: edge_capacity %i, "
+                     "halo_capacity %i, plan capacity %s", n_dev,
+                     part_setup.edge_capacity, part_setup.halo_capacity,
+                     part_setup.capacity)
+    elif packed:
+        plan_setup = PlanSetup(graphs, bucket, bs)
         logging.info("Plan capacity: %s", plan_setup.capacity)
 
     def transform_for(positions):
+        if part_setup is not None:
+            return part_setup.transform
         setup = blocked_setup or plan_setup
         return None if setup is None else setup.transform_for(positions)
 
@@ -293,8 +396,12 @@ def main(argv=None):
                     if args.output_dir else None)
         metrics_path = (os.path.join(args.output_dir, "metrics.jsonl")
                         if args.output_dir else None)
+        # gloo's collectives cannot be captured: its steps run eagerly
+        capture = not (mesh is not None and device.type == "cuda"
+                       and backend == "gloo")
         trainer = Trainer(model, tcfg, checkpoint_dir=ckpt_dir,
-                          metrics_path=metrics_path)
+                          metrics_path=metrics_path,
+                          strategy=args.strategy, capture=capture, mesh=mesh)
         if args.resume and trainer.load_checkpoint():
             logging.info("Resumed from epoch %i", trainer.epoch)
 
@@ -312,7 +419,7 @@ def main(argv=None):
         for k, v in metrics.items():
             logging.info("%s: %.4f", k.capitalize(), v)
 
-    if args.output_dir:
+    if args.output_dir and trainer.is_writer:
         os.makedirs(args.output_dir, exist_ok=True)
         logging.info("Writing outputs to %s", args.output_dir)
         save_params_npz(os.path.join(args.output_dir, "model.npz"),
@@ -320,6 +427,10 @@ def main(argv=None):
         np.savez(os.path.join(args.output_dir, "losses.npz"),
                  train_losses=np.asarray(trainer.train_losses),
                  valid_losses=np.asarray(trainer.valid_losses))
+    if created_world:
+        from torch import distributed as dist
+
+        dist.destroy_process_group()
     logging.info("All done!")
     return trainer
 

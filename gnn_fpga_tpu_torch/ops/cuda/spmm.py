@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -282,6 +283,15 @@ class PlanCapacity:
         return PlanCapacity(**{f.name: max(getattr(c, f.name)
                                            for c in counts)
                                for f in dataclasses.fields(PlanCapacity)})
+
+    def with_headroom(self, factor: float) -> "PlanCapacity":
+        """Each count times ``factor``, rounded up, and room for one more
+        split node (its two partial-row slots) and one more long segment a
+        direction: those counts are 0 on many plans and not on others."""
+        floor = dict(splits=1, slots=2, recv_long=1, send_long=1)
+        return PlanCapacity(**{
+            f.name: math.ceil(getattr(self, f.name) * factor)
+            + floor.get(f.name, 0) for f in dataclasses.fields(self)})
 
 
 def _host(t) -> np.ndarray:

@@ -16,6 +16,18 @@ and Adam runs with ``capturable=True``.  ``Trainer(capture=False)``
 dispatches every op from Python instead; on the CPU the static-buffer
 body runs eagerly.
 
+``strategy="dp"`` and ``"partitioned"`` run the same engine on a device
+mesh of one rank a device (``parallel/``): each rank takes its slice of
+a batch (``dp``) or its shard of a
+:class:`~gnn_fpga_tpu_torch.parallel.partition.PartitionedGraph`
+(``partitioned``), backpropagates its share of the whole batch's loss and
+sums the parameter gradients over the ranks, so every rank applies the
+same update; losses, predictions and metrics are the whole batch's on
+every rank.  Rank 0 writes the checkpoints and metrics, every rank reads
+them.  Under NCCL the step, eval loss and predict are captured with their
+collectives; gloo's collectives cannot be captured, so on a card under
+gloo the steps run eagerly and ``capture=True`` raises.
+
 Deliberate differences from the JAX package: the trainer takes the
 ``nn.Module`` (``model(graph, masks) -> logits``) instead of a
 ``logits_fn`` over a parameter pytree; :meth:`Trainer.run_steps` loops
@@ -38,6 +50,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -202,29 +215,42 @@ class Trainer:
         to the model's device.
       checkpoint_dir: directory for latest/best checkpoints; None disables.
       metrics_path: optional jsonl file appended with per-epoch records.
-      strategy: ``"single"``; ``"dp"`` and ``"partitioned"`` are not
-        ported yet.
+      strategy: ``"single"`` (one device), ``"dp"`` (data parallel over
+        ``mesh``'s ``data`` dimension: batched Graphs, each rank its slice
+        of the leading axis) or ``"partitioned"`` (graph parallel over
+        ``mesh``'s ``graph`` dimension: batches are stacked
+        :class:`~gnn_fpga_tpu_torch.parallel.partition.PartitionedGraph`s,
+        each rank runs the shard body on its shard with ``exchange``).
+        The model's own config sets the route of the shard body (plans and
+        ``fused_iteration``) and ``cfg.target`` its head.
       capture: on a CUDA device, run the step, the eval loss and predict
         as captured CUDA graphs, one for each static batch signature
         (:func:`~gnn_fpga_tpu_torch.core.capture.signature`); the first
         batch of a signature runs eagerly.  False dispatches every op from
         Python (the eager path the captured one is checked against).  On
         the CPU the captured path's static-buffer body runs eagerly.
+      mesh: the ``DeviceMesh`` of ``"dp"`` and ``"partitioned"``
+        (``parallel/mesh.py``).
+      exchange: ``"halo"`` or ``"allgather"``, the partitioned halo
+        exchange.
     """
 
     def __init__(self, model: nn.Module, cfg: TrainConfig = TrainConfig(),
                  masks=None, checkpoint_dir: Optional[str] = None,
                  metrics_path: Optional[str] = None,
-                 strategy: str = "single", capture: bool = True):
-        if strategy in ("dp", "partitioned"):
-            raise NotImplementedError(
-                f"strategy={strategy!r} is not ported yet (ROADMAP Queue 1 "
-                "item 12, 'Parallelism')")
-        if strategy != "single":
+                 strategy: str = "single", capture: bool = True,
+                 mesh=None, exchange: str = "halo"):
+        if strategy not in ("single", "dp", "partitioned"):
             raise ValueError(f"unknown strategy {strategy!r}")
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
+        self.strategy = strategy
+        self.mesh = mesh
+        self.exchange = exchange
+        self._comm = None
+        if strategy != "single":
+            self._comm = self._parallel_comm(capture)
         self.capture = capture
         self.masks = _masks_to(masks, self.device)
         self._captured: dict = {}    # (kind, signature) -> CapturedCall
@@ -236,6 +262,28 @@ class Trainer:
         self.ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         self.metrics_path = metrics_path
         logger("Parameters: %i" % sum(p.numel() for p in model.parameters()))
+
+    def _parallel_comm(self, capture: bool):
+        """The collectives of the ``dp`` or ``partitioned`` strategy over
+        the mesh dimension it runs on."""
+        from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+        from gnn_fpga_tpu_torch.parallel.collectives import Comm
+
+        if self.mesh is None:
+            raise ValueError(f"strategy={self.strategy!r} needs a mesh")
+        axis = (mesh_lib.DATA_AXIS if self.strategy == "dp"
+                else mesh_lib.GRAPH_AXIS)
+        comm = Comm(self.mesh.get_group(axis))
+        if capture and self.device.type == "cuda" and comm.backend != "nccl":
+            raise ValueError(
+                f"capture=True needs NCCL: {comm.backend}'s collectives "
+                "cannot be captured in a CUDA graph; pass capture=False")
+        return comm
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and metrics (rank 0)."""
+        return self._comm is None or dist.get_rank() == 0
 
     # -- steps -------------------------------------------------------------
 
@@ -249,7 +297,14 @@ class Trainer:
     def _logits(self, graph: Graph) -> torch.Tensor:
         """Logits of a single graph, or ``[B, ...]`` of a batched one
         (leading batch axis), which the model takes whole: the blocked and
-        dense routes fold the batch into their matmuls."""
+        dense routes fold the batch into their matmuls.  Under
+        ``"partitioned"``, this rank's shard's (the shard body)."""
+        if self.strategy == "partitioned":
+            from gnn_fpga_tpu_torch.parallel import partition as part
+
+            return part.sharded_logits(self.model, graph, self._comm,
+                                       self.masks, self.exchange,
+                                       self.cfg.target)
         return self.model(graph, self.masks)
 
     def _loss(self, graph: Graph) -> torch.Tensor:
@@ -271,8 +326,37 @@ class Trainer:
             device_rate=cuda and (self.capture or self.cfg.optimizer
                                   == "adam"))
 
+    def _parallel_loss(self, local, train: bool):
+        """``(objective, loss)`` of the dp or partitioned strategy on this
+        rank's part of a batch (``parallel/``): the whole batch's masked
+        mean, this rank's share of it to backpropagate.  The partitioned
+        step always masks and its eval loss adds no L1 term, as in the JAX
+        package."""
+        from gnn_fpga_tpu_torch.parallel import data_parallel as dp
+        from gnn_fpga_tpu_torch.parallel import partition as part
+
+        cfg = self.cfg
+        if self.strategy == "dp":
+            return dp.make_dp_loss_fn(self.model, cfg, self._comm,
+                                      self.masks)(local)
+        if train:
+            return part.sharded_loss(self.model, local, self._comm,
+                                     self.masks, self.exchange, cfg.target,
+                                     cfg.pos_weight, cfg.l1)
+        targets, mask = self._target_and_mask(local)
+        s, c = dp.bce_sums(self._logits(local), targets, mask,
+                           cfg.pos_weight)
+        return dp.global_mean(s, c, self._comm)
+
     def _step_body(self, graph: Graph) -> torch.Tensor:
         """One optimizer step on ``graph``; what a capture records."""
+        if self._comm is not None:
+            from gnn_fpga_tpu_torch.parallel import data_parallel as dp
+
+            return dp.train_step(
+                self.optimizer, self.model,
+                lambda g: self._parallel_loss(g, True), graph, self._comm,
+                self.masks)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(graph)
         loss.backward()
@@ -284,17 +368,39 @@ class Trainer:
 
     def _eval_body(self, graph: Graph) -> torch.Tensor:
         with torch.no_grad():
+            if self._comm is not None:
+                return self._parallel_loss(graph, False)[1]
             return self._loss(graph)
 
     def _predict_body(self, graph: Graph) -> torch.Tensor:
         with torch.no_grad():
-            return torch.sigmoid(self._logits(graph))
+            probs = torch.sigmoid(self._logits(graph))
+            if self.strategy == "dp":
+                return self._comm.all_gather(probs).flatten(0, 1)
+            if self.strategy == "partitioned":
+                return self._comm.all_gather(probs)
+            return probs
+
+    def _local(self, batch):
+        """This rank's part of a batch, on its device: its slice (dp), its
+        shard (partitioned), or the batch as given (single)."""
+        if self.strategy == "dp":
+            from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+
+            return mesh_lib.shard_batch(batch, self.mesh, mesh_lib.DATA_AXIS)
+        if self.strategy == "partitioned":
+            from gnn_fpga_tpu_torch.parallel import partition as part
+
+            return part.local_shard(batch, self._comm.rank, self.device)
+        return batch
 
     def _run(self, kind: str, body, graph: Graph) -> torch.Tensor:
         """``body(graph)``: eagerly with ``capture=False``, else through
         the captured call of ``kind`` for the graph's signature (made at
         its first batch).  The result is the caller's own (a replay's
-        output is copied out of the capture)."""
+        output is copied out of the capture).  Under dp or partitioned,
+        ``graph`` becomes this rank's part of it first."""
+        graph = self._local(graph)
         if not self.capture:
             return body(graph)
         key = (kind, signature(graph))
@@ -445,9 +551,14 @@ class Trainer:
         }
 
     def save_checkpoint(self, is_best: bool) -> None:
+        """Rank 0 writes; under dp or partitioned every rank then waits
+        for it, so that any rank may read the checkpoint afterwards."""
         if self.ckpt is None:
             return
-        self.ckpt.save(self._state(), self._meta(), is_best)
+        if self.is_writer:
+            self.ckpt.save(self._state(), self._meta(), is_best)
+        if self._comm is not None:
+            self._comm.barrier()
 
     def load_checkpoint(self, best: bool = False) -> bool:
         """Restore the weights, optimizer and schedule state and the loss
@@ -495,7 +606,7 @@ class Trainer:
                             st["step"], dtype=torch.float32).to(p.device)
 
     def _write_metrics(self, record) -> None:
-        if not self.metrics_path:
+        if not self.metrics_path or not self.is_writer:
             return
         os.makedirs(os.path.dirname(os.path.abspath(self.metrics_path)),
                     exist_ok=True)

@@ -145,9 +145,21 @@ def test_infer_cli_benchmark_times_the_forward(graph_dir, tmp_path):
 
 @pytest.mark.parametrize("strategy", ["dp", "partitioned"])
 def test_train_cli_strategies_are_not_ported(graph_dir, strategy):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrain.main(["--input-dir", str(graph_dir), "--strategy", strategy,
-                     "--device", "cpu", *COMMON])
+    """The parallel strategies are ported: without a launcher they run as
+    a world of one, whose losses are the single strategy's, and leave no
+    process group behind (the multi-rank runs against the JAX CLI are in
+    tests/test_torch_parallel_ranks.py)."""
+    import torch.distributed as dist
+
+    args = ["--input-dir", str(graph_dir), "--device", "cpu",
+            "--n-epochs", "2", *COMMON]
+    want = ttrain.main(args)
+    got = ttrain.main(args + ["--strategy", strategy])
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(got.train_losses, want.train_losses,
+                               **LOSS_TOL)
+    np.testing.assert_allclose(got.valid_losses, want.valid_losses,
+                               **LOSS_TOL)
 
 
 def test_blocked_needs_layer_arrays(tmp_path):

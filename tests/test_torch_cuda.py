@@ -1287,3 +1287,106 @@ def test_construct_graph_on_the_card_equals_the_cpu(dev):
     assert on_card.n_edge > 0
     for f in ("x", "senders", "receivers", "y"):
         assert torch.equal(getattr(on_card, f), getattr(on_cpu, f)), f
+
+
+@pytest.fixture
+def world_of_one(request):
+    """A process group of this process alone (``request.param``'s backend)
+    for the parallel paths, destroyed afterwards."""
+    import torch.distributed as dist
+
+    from gnn_fpga_tpu_torch.parallel import multihost
+
+    multihost.initialize_single(request.param)
+    try:
+        yield request.param
+    finally:
+        dist.destroy_process_group()
+
+
+def _partitioned_batches(dev, n):
+    """``n`` Toy2D events, each one graph partitioned into one shard with
+    plans, pinned to one signature, on the card."""
+    from gnn_fpga_tpu_torch.data import toy2d
+    from gnn_fpga_tpu_torch.parallel import partition as part
+
+    gs = [tg.unbatch_graphs(toy2d.make_segment_graphs(
+        toy2d.Toy2DConfig(n_layers=8, n_tracks=6, seed=s), 1))[0]
+        for s in range(n)]
+    e_cap = max(int(g.edge_mask.sum()) for g in gs)
+    cap = tsp.PlanCapacity.covering(*(part.partition_graph(
+        g, 1, plans=True, edge_capacity=e_cap).shard(0).plans for g in gs))
+    return [part.partition_graph(g, 1, plans=True, edge_capacity=e_cap,
+                                 capacity=cap).to(dev) for g in gs]
+
+
+@pytest.mark.parametrize("world_of_one", ["nccl"], indirect=True)
+@pytest.mark.parametrize("fused", [True, False])
+def test_partitioned_captured_steps_match_eager(dev, world_of_one, fused):
+    """Five partitioned steps at P = 1 over NCCL: captured (the step with
+    its collectives, then the eval loss and predict) against eager, losses
+    and weights at rtol 1e-5 and the same launches; the partitioned
+    forward on the card against its plain versions on the CPU."""
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.parallel import partition as part
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batches = _partitioned_batches(dev, 5)
+    mesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,))
+    base = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   fused_iteration=fused),
+        torch.Generator().manual_seed(0), device=dev)
+    cfg = TrainConfig(learning_rate=3e-3, pos_weight=8.0, l1=1e-4)
+    runs = {}
+    for capture in (True, False):
+        model = tm.SegmentClassifier(base.cfg, torch.Generator(), device=dev)
+        model.load_state_dict(base.state_dict())
+        tr = Trainer(model, cfg, strategy="partitioned", mesh=mesh,
+                     capture=capture)
+        tsp.reset_launch_counts()
+        runs[capture] = (tr.run_steps(batches), tsp.launch_counts(),
+                         [p.detach().clone() for p in model.parameters()],
+                         tr._eval_loss(batches[0]))
+        if capture:
+            tr.predict(iter(batches[:1]), 1)
+            assert sorted(k for k, _ in tr._captured) == [
+                "eval", "predict", "train"]
+    (got, got_n, got_w, got_v), (want, want_n, want_w, want_v) = \
+        runs[True], runs[False]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got_v, want_v, rtol=1e-5)
+    assert got_n == want_n
+    for a, b in zip(got_w, want_w):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    import torch.distributed as dist
+
+    from gnn_fpga_tpu_torch.parallel.collectives import Comm
+
+    cpu_model = tm.SegmentClassifier(base.cfg, torch.Generator(),
+                                     device="cpu")
+    cpu_model.load_state_dict(base.state_dict())
+    with torch.no_grad():
+        card = part.sharded_logits(base, batches[0].shard(0),
+                                   part.graph_comm(mesh))
+        plain = part.sharded_logits(
+            cpu_model, batches[0].shard(0).to("cpu"),
+            Comm(dist.new_group(backend="gloo")))
+    torch.testing.assert_close(card.cpu(), plain, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("world_of_one", ["gloo"], indirect=True)
+def test_capture_under_gloo_on_the_card_raises(dev, world_of_one):
+    """gloo's collectives cannot be captured: ``capture=True`` raises, and
+    ``capture=False`` runs the step eagerly."""
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.train.trainer import Trainer
+
+    mesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,))
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2),
+        torch.Generator().manual_seed(0), device=dev)
+    with pytest.raises(ValueError, match="NCCL"):
+        Trainer(model, strategy="partitioned", mesh=mesh)
+    tr = Trainer(model, strategy="partitioned", mesh=mesh, capture=False)
+    assert np.isfinite(tr.run_steps(_partitioned_batches(dev, 1))).all()

@@ -1,6 +1,7 @@
 """The port stands without JAX, and its GPU smoke run refuses to run (and
 to report success) on a machine without a card."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -35,6 +36,8 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch.cli import prepare_graphs, prepare_muon_graphs\n"
         "from gnn_fpga_tpu_torch.train import trainer, checkpoint, metrics\n"
         "from gnn_fpga_tpu_torch.compress import pruning\n"
+        "from gnn_fpga_tpu_torch.parallel import collectives, mesh, multihost\n"
+        "from gnn_fpga_tpu_torch.parallel import data_parallel, partition\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'orbax', 'gnn_fpga_tpu', 'pandas',\n"
         "        'matplotlib')]\n"
@@ -84,3 +87,50 @@ def test_chip_smoke_fails_without_a_gpu():
     assert proc.returncode != 0
     lines = proc.stdout.strip().splitlines()
     assert not lines or '"ok": true' not in lines[-1]
+
+
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "gnn_fpga_tpu")
+
+
+def _imported_modules(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_parallel_examples_and_rank_bodies_import_no_jax():
+    """Every import statement of the parallel package, the port's three
+    examples and the multi-rank tests' rank bodies (function-level ones
+    included) names neither JAX nor the JAX package; and a process that
+    imports the rank bodies and runs the partitioned example (a world of
+    one, on the CPU) loads neither."""
+    files = (sorted((ROOT / "gnn_fpga_tpu_torch" / "parallel").glob("*.py"))
+             + [ROOT / "examples" / f"{n}_torch.py"
+                for n in ("partitioned_mu200", "train_toy2d",
+                          "pruning_rounds")]
+             + [ROOT / "tests" / "torch_parallel_ranks.py"])
+    for f in files:
+        bad = [m for m in _imported_modules(f)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (f.name, bad)
+    code = (
+        "import importlib.util, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'ex', 'examples/partitioned_mu200_torch.py')\n"
+        "ex = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(ex)\n"
+        "ex.main(['--n-tracks', '3', '--steps', '2', '--hidden-dim', '4',\n"
+        "         '--n-iters', '1', '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        f"       {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -340,8 +340,10 @@ def test_load_weights_transplant():
 
 
 def test_strategies_not_ported_raise():
+    """The parallel strategies are ported (tests/test_torch_parallel*.py);
+    without a mesh they raise, as an unknown strategy does."""
     for strategy in ("dp", "partitioned"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             ttrainer.Trainer(_toy_model(9, n_iters=1), strategy=strategy)
     with pytest.raises(ValueError):
         ttrainer.Trainer(_toy_model(9, n_iters=1), strategy="nope")
