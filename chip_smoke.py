@@ -66,13 +66,27 @@ it:
    tests train, logits on the card against the CPU, 50 Adam steps each
    with a falling loss (no hand-written kernel);
 11. capture: the captured train step (CUDA graphs, one for each batch
-   signature) against the eager one over 5 steps from one init on the
-   fused, unfused and blocked routes; the captured serving and infer
+   signature) against the eager one over 5 one-step calls from one init on
+   the fused, unfused and blocked routes; the captured serving and infer
    forwards against the eager ones bit for bit; kernels #1-#7 (and sddmm,
    sddmm_dual) on plans padded to a static capacity against the unpadded
    plans bit for bit at the fullevent shape; a batch of another signature
    raising;
-12. parallel: the fullevent packed graphs partitioned at P = 1 (a
+12. scan: bench.py's fullevent stack, 32 distinct packed graphs padded
+   to one capacity and stacked on the card (``stack_batches``), trained by
+   ``Trainer.run_steps`` as one captured 32-step graph (the cosine rate
+   computed from a step count on the device): one graph replay for 32
+   steps, 32 steps' launches, losses and weights bit for bit against
+   one-step calls from the same init under a constant and a cosine rate;
+   the same check at 4 steps on the unfused and blocked routes and for
+   ``strategy="partitioned"`` at P = 1 over NCCL; each capture's time and
+   its memory beyond its input buffers against the one-step graph's
+   (at most twice); the stack's copy into the capture's buffers; the
+   stacked step timed as bench.py's ``timed_run`` times it beside
+   one-step calls, its device idle share, useful TFLOP/s, MFU and the
+   attainable MFU (``utils/flops.py``, whose peaks and per-kernel work
+   every bound here reads);
+13. parallel: the fullevent packed graphs partitioned at P = 1 (a
    world of one over NCCL in this process): the sharded forward's
    probabilities and summed gradients, fused and unfused, against the
    sparse route; 32 captured Adam steps of ``Trainer(strategy=
@@ -88,7 +102,7 @@ it:
    against one device's, 8 eager steps with the losses and weights
    identical on every rank, and 2 ranks of dp in f32 against the single
    device (times of ranks that share one card measure no scaling);
-13. prepare: 4 synthetic TrackML-format events at mu200 density (10,000
+14. prepare: 4 synthetic TrackML-format events at mu200 density (10,000
    particles, ~10^4 hits a barrel layer, 10% noise hits, particle ids
    above 2^53) written with numpy; the doublet cross-join kernel
    (``csrc/doublets.cu``) against its plain version, bit for bit, on one
@@ -120,11 +134,11 @@ It prints a JSON line of per-kernel results and ends with one JSON line
 ``{"ok": true, "device": {...}}`` when every phase passed; any failure
 exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
 three fused requests, three fused training steps, one blocked training
-step, three NodeClassifier training steps and three replayed
-partitioned (P = 1) and single-device steps to PATH.  ``--phase NAME``
-(kernels, iteration, rows or stream, on the first packed graph,
-prepare or parallel; repeatable) runs only those phases and prints no
-result line:
+step, three NodeClassifier training steps, one 32-step replay of the
+stacked step and three replayed partitioned (P = 1) and single-device
+steps to PATH.  ``--phase NAME`` (kernels, iteration, rows or stream, on
+the first packed graph, prepare, parallel or scan; repeatable) runs only
+those phases and prints no result line:
 copied into an older checkout, it measures that tree's kernels the same
 way.
 """
@@ -222,9 +236,6 @@ BF16_PROB_MAX_ABS, BF16_PROB_MEAN_ABS = 3e-2, 3e-3
 # (1% of messages dropped; a node head summing in bf16) 2.2e-2 and above.
 F32_GRAD_TOL = (2e-3, 1e-5)
 BF16_GRAD_REL = 1.5e-2
-# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
-# memory, and f32 outside the tensor cores, which these kernels use.
-PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 
 # The front door at the fullevent width: 108 Toy2D kNN sectors (3 x 36) as
 # NPZ files, batches of 36 (2 train batches and 1 valid batch), the train
@@ -245,6 +256,17 @@ GCN_STEPS = 50
 # Captured against eager steps over CAPTURE_STEPS steps from one init: the
 # rtol the Trainer's steps are held to against the JAX Trainer's.
 CAPTURE_STEPS, CAPTURE_RTOL, CAPTURE_ATOL = 5, 1e-5, 1e-6
+# The scan phase: bench.py's fullevent timed stack (bench.py:228-311),
+# SCAN_STEPS distinct packed graphs (seeds 0-31) padded to one capacity and
+# stacked on the card, run as one K-step graph; the unfused, blocked and
+# partitioned (P = 1) routes at SCAN_SHORT_STEPS; the cosine rate decays
+# over SCAN_DECAY_STEPS (the clamp is reached inside the 2K steps a check
+# runs); the K-step call repeated SCAN_REPS times as bench.py's timed_run
+# does.  A K-step graph's memory beyond its input buffers may be at most
+# SCAN_MEMORY_FACTOR times the one-step graph's.
+SCAN_STEPS, SCAN_SHORT_STEPS, SCAN_REPS = 32, 4, 4
+SCAN_DECAY_STEPS = 48
+SCAN_MEMORY_FACTOR = 2.0
 # The readings of the host loop before steps were captured and plans
 # composed (PERF.md's Findings: two runs on an NVIDIA H100 80GB HBM3
 # at 700 W; the eager step's device time and idle share with the profiler
@@ -291,12 +313,11 @@ PARALLEL_RANK_TIMEOUT_S = 300
 # tolerance in the CPU tests) and F32_GRAD_TOL.
 HALO_EVENT_TRACKS = 400
 SHARD_F32_PROB_TOL = (1e-4, 1e-5)
-# The doublet kernel's bound: the H100 SXM's published f64 rate outside
-# the tensor cores (NVIDIA's data sheet, at 700 W), and the f64 operations
-# of one pair evaluation (3 subtractions, 2 divisions, 1 multiplication,
-# 1 subtraction, 2 wrap tests, 2 absolute values, 2 comparisons; the
-# rarely taken wrap additions not counted)
-PEAK_F64_PER_S, DOUBLET_F64_OPS = 34e12, 13
+# The doublet kernel's bound: the f64 operations of one pair evaluation
+# (3 subtractions, 2 divisions, 1 multiplication, 1 subtraction, 2 wrap
+# tests, 2 absolute values, 2 comparisons; the rarely taken wrap additions
+# not counted) at the card's f64 rate outside the tensor cores
+DOUBLET_F64_OPS = 13
 
 
 def fail(msg: str):
@@ -306,6 +327,16 @@ def fail(msg: str):
 def expected_counts(**launched) -> dict:
     """Launch counts of every kernel wrapper: ``launched``, else 0."""
     return {name: launched.get(name, 0) for name in KERNELS}
+
+
+def fused_step_counts(steps: int = 1) -> dict:
+    """The launch counts of ``steps`` fused SegmentClassifier train steps
+    (``utils/flops.py::fused_step_launches``, which the step's roofline
+    sums over)."""
+    from gnn_fpga_tpu_torch.utils import flops
+
+    return expected_counts(**{k: n * steps for k, n in
+                              flops.fused_step_launches(N_ITERS).items()})
 
 
 def phase_device() -> str:
@@ -371,6 +402,13 @@ def serve_captured(call, g):
     p = call(g).clone()
     torch.cuda.synchronize()
     return p, (time.perf_counter() - t) * 1e3
+
+
+def one_step_calls(trainer, batches) -> None:
+    """``trainer.run_steps([g])`` for each of ``batches``: one replay of
+    the trainer's one-step graph a batch, each with its readback."""
+    for g in batches:
+        trainer.run_steps([g])
 
 
 def step_times(step_ms) -> str:
@@ -476,40 +514,30 @@ def exact(name, got, ref) -> float:
     return max_abs
 
 
-def kernel_work(name, dt, v, e, d, hdim) -> tuple:
-    """(bytes, f32 operations) that one call of kernel ``name`` must do on
-    ``v`` nodes and ``e`` edges (rows read, for the segment sum) with
-    tables of ``d`` and ``hdim`` columns in ``dt``: each input read once
-    and each output written once (edge weights, masks and sddmm outputs
-    f32, one int32 sender and receiver an edge, or the segment sum's
-    offsets), and the arithmetic of the function, each edge's score once
-    (a tanh or exp counted as one operation)."""
-    t = torch.empty((), dtype=dt).element_size()
-    tab = lambda w: v * w * t
-    ids, ev = 8 * e, 4 * e
-    return {
-        "iteration_pair": (2 * tab(hdim) + 3 * tab(d) + ev + ids,
-                           e * (6 * hdim + 4 * d + 4)),
-        "aggregate_pair": (3 * tab(d) + ev + ids, 4 * e * d),
-        "gather_pair": (2 * tab(hdim) + ids + e * hdim * t, e * hdim),
-        "iteration_pair_bwd": (4 * tab(hdim) + 4 * tab(d) + ev + ids,
-                               e * (13 * hdim + 8 * d + 8)),
-        "aggregate_pair_bwd": (4 * tab(d) + 2 * ev + ids, 8 * e * d),
-        "gather_pair_bwd": (e * hdim * t + ids + 2 * tab(hdim),
-                            2 * e * hdim),
-        "spmm": (2 * tab(d) + ev + ids, 2 * e * d),
-        "sddmm": (2 * tab(d) + ids + ev, 2 * e * d),
-        "sddmm_dual": (4 * tab(d) + ids + ev, 4 * e * d),
-        "sorted_segment_sum": (e * d * t + 4 * (v + 1) + tab(d), e * d),
-    }[name]
+def card_peaks():
+    """The card's published peaks (``utils/flops.py``, NVIDIA's data
+    sheet): the one table every bound here reads.  Fails for a card the
+    table lacks."""
+    from gnn_fpga_tpu_torch.utils import flops
+
+    peaks = flops.chip_peaks()
+    if peaks is None:
+        fail(f"no published peaks for {torch.cuda.get_device_name(0)} in "
+             f"gnn_fpga_tpu_torch/utils/flops.py")
+    return peaks
 
 
 def bound_ms(name, dt, *shape) -> tuple:
-    """The least time the card could take for :func:`kernel_work`, and
-    what sets it: ``(ms, "bytes" or "operations")``."""
-    nbytes, ops = kernel_work(name, dt, *shape)
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_F32_PER_S * 1e3
+    """The least time the card could take for one call of kernel
+    ``name`` (``utils/flops.py::kernel_work``: its bytes over the memory
+    rate, its f32 operations over the f32 rate), and what sets it:
+    ``(ms, "bytes" or "operations")``."""
+    from gnn_fpga_tpu_torch.utils import flops
+
+    peaks = card_peaks()
+    nbytes, ops = flops.kernel_work(name, dt.itemsize, *shape)
+    by_bytes = nbytes / (peaks.hbm_gbps * 1e9) * 1e3
+    by_ops = ops / (peaks.f32_tflops * 1e12) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -740,9 +768,10 @@ def print_probe_bounds():
         "probe_ops.py gather_kernel_builder": 4 * (e + v * d + e * d),
         "probe_bw.py passthrough": 2 * e * d * 4,
     }
+    rate = card_peaks().hbm_gbps * 1e9
     for name, nbytes in probes.items():
         print(f"  probe {name}: {nbytes} bytes, bound "
-              f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)", flush=True)
+              f"{nbytes / rate * 1e3:.4f} ms (bytes)", flush=True)
 
 
 def without_pad_edges(g):
@@ -1293,9 +1322,7 @@ def phase_training(device, graphs, profile_path=None) -> dict:
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
     print(f"  launches per fused step: {per_step}", flush=True)
     print(f"  launches per unfused step: {unfused_counts}", flush=True)
-    expect_fused = expected_counts(iteration_pair=N_ITERS, gather_pair=1,
-                                   iteration_pair_bwd=N_ITERS,
-                                   gather_pair_bwd=1)
+    expect_fused = fused_step_counts()
     expect_unfused = expected_counts(gather_pair=N_ITERS + 1,
                                      gather_pair_bwd=N_ITERS + 1,
                                      aggregate_pair=N_ITERS,
@@ -1322,11 +1349,11 @@ def phase_training(device, graphs, profile_path=None) -> dict:
     print(f"  fused bf16 train step: {step_times(step_ms)}; synchronised "
           f"by the loss readback, {n_real / (mean_ms / 1e3):.4e} edges/s",
           flush=True)
-    _, fused_busy = profiled(lambda: trainer.run_steps(graphs[:3]))
+    _, fused_busy = profiled(lambda: one_step_calls(trainer, graphs[:3]))
     print(f"  [{card()}] fused bf16 train step, replayed: device time "
           f"{fused_busy / 3:.3f} ms (torch.profiler over 3 replays; before: "
           f"{BEFORE['device']})", flush=True)
-    wall, busy = profiled(lambda: unfused.run_steps(graphs[:3]),
+    wall, busy = profiled(lambda: one_step_calls(unfused, graphs[:3]),
                           profile_path and (profile_path,
                                             "3 unfused training steps"))
     print(f"  unfused bf16 train step: {step_times(unfused_ms)}; device "
@@ -1335,7 +1362,7 @@ def phase_training(device, graphs, profile_path=None) -> dict:
           flush=True)
     if profile_path:
         write_profile(profile_path, "a", "3 training steps",
-                      lambda: trainer.run_steps(graphs[:3]))
+                      lambda: one_step_calls(trainer, graphs[:3]))
     return launches
 
 
@@ -1664,7 +1691,7 @@ def phase_node(device, profile_path=None) -> dict:
           f"(eager, then captured) {unfused_ms:.3f} ms", flush=True)
     if profile_path:
         write_profile(profile_path, "a", "3 node training steps",
-                      lambda: trainer.run_steps(graphs[:3]))
+                      lambda: one_step_calls(trainer, graphs[:3]))
     return launches
 
 
@@ -1876,7 +1903,8 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
     from gnn_fpga_tpu_torch.cli import train
     from gnn_fpga_tpu_torch.core import graph as G
     from gnn_fpga_tpu_torch.models import mpnn
-    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
 
     timing = common + ["--aggregation", "pallas", "--valid-frac", "0",
                        "--n-epochs", str(CLI_TIMING_EPOCHS)]
@@ -1906,17 +1934,19 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
         cfg, torch.Generator().manual_seed(0), device=device),
         TrainConfig(learning_rate=LEARNING_RATE, pos_weight=POS_WEIGHT))
     batch = g.to(device)
-    trainer.run_steps([batch, batch])              # eager, then captured
+    one, five, twenty = (stack_batches([batch] * k) for k in (1, 5, 20))
+    for stack in (one, one, five, twenty):     # eager and captured first
+        trainer.run_steps(stack)
     run_ms = []
     for _ in range(8):
         t = time.perf_counter()
-        trainer.run_steps([batch])
+        trainer.run_steps(one)
         run_ms.append((time.perf_counter() - t) * 1e3)
-    # the replayed step's device time (profiled replays) and its wall time
-    # with the profiler off (replays back to back, one readback)
-    _, dev_busy = profiled(lambda: trainer.run_steps([batch] * 5))
+    # the replayed step's device time (a profiled 5-step replay) and its
+    # wall time with the profiler off (a 20-step replay, one readback)
+    _, dev_busy = profiled(lambda: trainer.run_steps(five))
     t = time.perf_counter()
-    trainer.run_steps([batch] * 20)
+    trainer.run_steps(twenty)
     replay_ms = (time.perf_counter() - t) * 1e3 / 20
     step_dev_ms = dev_busy / 5
     name = card()
@@ -1935,10 +1965,11 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
     print(f"  [{name}] run_steps fused bf16 step, replayed, on one pre-built "
           f"batch of {batch.n_edge} edges: {mean(run_ms):.3f} ms (min "
           f"{min(run_ms):.3f}, max {max(run_ms):.3f}, 8 steps of one "
-          f"readback each; before: {BEFORE['run_steps']}); 20 replays with one "
-          f"readback: {replay_ms:.3f} ms/step; host loop = cli step - "
-          f"run_steps step: {mean(step_ms[2]) - mean(run_ms):.3f} ms with "
-          f"prefetch, {mean(step_ms[0]) - mean(run_ms):.3f} ms without",
+          f"readback each; before: {BEFORE['run_steps']}); a 20-step graph "
+          f"replayed, one readback: {replay_ms:.3f} ms/step; host loop = "
+          f"cli step - run_steps step: "
+          f"{mean(step_ms[2]) - mean(run_ms):.3f} ms with prefetch, "
+          f"{mean(step_ms[0]) - mean(run_ms):.3f} ms without",
           flush=True)
     print(f"  [{name}] host time a batch of {CLI_BATCH} sectors: pack_graphs "
           f"{pack_ms:.3f} ms (before: {BEFORE['pack_graphs']}), attach_plans "
@@ -1948,9 +1979,9 @@ def measure_host_loop(common, data, runs, device, infer_latency) -> None:
           f"{CLI_SECTORS} sectors built once in {setup_ms:.3f} ms",
           flush=True)
     print(f"  [{name}] replayed fused bf16 step on the CLI batch: device "
-          f"time {step_dev_ms:.3f} ms (torch.profiler over 5 replays), wall "
-          f"{replay_ms:.3f} ms with the profiler off: device idle "
-          f"{1 - step_dev_ms / replay_ms:.1%} (before: {BEFORE['idle']})",
+          f"time {step_dev_ms:.3f} ms (torch.profiler over a 5-step "
+          f"replay), wall {replay_ms:.3f} ms with the profiler off: device "
+          f"idle {1 - step_dev_ms / replay_ms:.1%} (before: {BEFORE['idle']})",
           flush=True)
     print(f"  [{name}] two cli epochs ({2 * steps} steps) under "
           f"torch.profiler: epochs {epoch_ms:.3f} ms, device busy "
@@ -2200,8 +2231,9 @@ def check_doublet_kernel(prefix: str, device) -> dict:
     ms = device_ms(k1, k2)
     plain_ms = (p1[1] + p2[1]) / 2
     nbytes = 24 * (n1 + n2) + 16 * (n_pairs + 1) + 8 * n_pairs + 16 * n_kept
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = evals * DOUBLET_F64_OPS / PEAK_F64_PER_S * 1e3
+    peaks = card_peaks()
+    by_bytes = nbytes / (peaks.hbm_gbps * 1e9) * 1e3
+    by_ops = evals * DOUBLET_F64_OPS / (peaks.f64_tflops * 1e12) * 1e3
     bound, by = ((by_bytes, "bytes") if by_bytes >= by_ops
                  else (by_ops, "operations"))
     native_ms = time_native(args, z0_max, got)
@@ -2210,9 +2242,10 @@ def check_doublet_kernel(prefix: str, device) -> dict:
           f"{evals / ms * 1e3:.4e} pair evaluations/s; the wrapper with its "
           f"host sync {(w1[1] + w2[1]) / 2:.4f} ms dispatched; plain "
           f"{plain_ms:.4f} ms dispatched ({p1[1]:.4f}, {p2[1]:.4f}); bound "
-          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s "
-          f"{by_bytes:.4f} ms, {evals} x {DOUBLET_F64_OPS} f64 operations "
-          f"at 34 TFLOP/s {by_ops:.4f} ms); one PyTorch call: none; the C++ "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB at "
+          f"{peaks.hbm_gbps / 1e3:g} TB/s {by_bytes:.4f} ms, {evals} x "
+          f"{DOUBLET_F64_OPS} f64 operations at {peaks.f64_tflops:g} "
+          f"TFLOP/s {by_ops:.4f} ms); one PyTorch call: none; the C++ "
           f"library (native/doublets.cpp, {native_cpu()}): "
           f"{'not built' if native_ms is None else f'{native_ms:.1f} ms'}",
           flush=True)
@@ -2462,9 +2495,10 @@ def phase_capture(device, graphs, unpadded) -> None:
         got = {}
         for on in (True, False):
             tr = Trainer(variant_of(base, device), tcfg, capture=on)
-            got[on] = (torch.from_numpy(tr.run_steps(batches)),
-                       torch.cat([p.detach().reshape(-1)
-                                  for p in tr.model.parameters()]))
+            # one-step calls: the first eager and captured, then replays
+            got[on] = (torch.cat([torch.from_numpy(tr.run_steps([b]))
+                                  for b in batches]),
+                       params_of(tr.model))
             if on and len(tr._captured) != 1:
                 fail(f"capture: the {route} steps took "
                      f"{len(tr._captured)} captures, expected 1")
@@ -2551,6 +2585,271 @@ def phase_capture(device, graphs, unpadded) -> None:
                   + ", ".join(f"{k} {fmt_ms(t)} ms" for k, t in ts.items()),
                   flush=True)
 
+
+
+# ---------------------------------------------------------------------------
+# The scan phase: a stacked epoch as one captured graph (run_steps on a stack)
+# ---------------------------------------------------------------------------
+
+def tensor_bytes(batch) -> int:
+    return sum(t.numel() * t.element_size() for t in batch.tensors())
+
+
+def count_replays(run) -> tuple:
+    """``(run(), the CUDA graph replays it made)``."""
+    replays = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        replays[0] += 1
+        return replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        out = run()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    return out, replays[0]
+
+
+def first_call_memory(trainer, stack) -> tuple:
+    """``(losses, bytes)`` of ``trainer``'s first call on ``stack`` (its
+    eager run and the capture): the peak memory it allocated beyond what
+    was allocated before and beyond the capture's input buffers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    losses = trainer.run_steps(stack)
+    torch.cuda.synchronize()
+    return losses, (torch.cuda.max_memory_allocated() - before
+                    - tensor_bytes(stack))
+
+
+def params_of(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def scan_check(label, trainers, batches) -> dict:
+    """The K-step graph against one-step graphs from one init:
+    ``trainers()`` gives two trainers with the same weights; the first
+    runs ``stack_batches(batches)`` twice (its first call eager and
+    captured, the second one replay of the K-step graph), the second
+    runs the same 2K steps one batch a call (its one-step graph replayed
+    after the first).  Losses and weights must agree bit for bit, the
+    replay must be one CUDA graph replay that launches K steps' kernels,
+    and the first call's memory beyond its input buffers is returned
+    beside the one-step trainer's."""
+    from gnn_fpga_tpu_torch.core.capture import signature
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.train.trainer import stack_batches
+
+    k = len(batches)
+    stacked, one_step = trainers()
+    stack = stack_batches(batches)
+    first, mem_k = first_call_memory(stacked, stack)
+    call = stacked._captured[("train", signature(
+        stacked._local(stack, stacked=True)))]
+    spmm.reset_launch_counts()
+    second, replays = count_replays(lambda: stacked.run_steps(stack))
+    launches = spmm.launch_counts()
+    got = torch.cat([torch.from_numpy(first), torch.from_numpy(second)])
+    ones, mem_1 = first_call_memory(one_step, stack_batches(batches[:1]))
+    ones = [float(ones[0])] + [float(one_step.run_steps([b])[0])
+                               for b in (batches + batches)[1:]]
+    want = torch.tensor(ones, dtype=torch.float32)
+    same = torch.equal(got, want) and torch.equal(
+        params_of(stacked.model), params_of(one_step.model))
+    print(f"  [{card()}] {label}: {2 * k} steps, a {k}-step graph (its "
+          f"first call eager, then {replays} replay) against {2 * k} one-step "
+          f"calls "
+          f"(one-step graph replays after the first): losses and weights "
+          f"bit for bit {'ok' if same else 'FAIL'}; losses "
+          f"{' '.join(f'{x:.4f}' for x in got.tolist())}", flush=True)
+    if not same:
+        diff = (got - want).abs().max().item()
+        fail(f"scan: {label}: the K-step graph differs from one-step calls "
+             f"(losses max |diff| {diff:.3e})")
+    if replays != 1:
+        fail(f"scan: {label}: a {k}-step call made {replays} graph replays")
+    if not torch.isfinite(got).all():
+        fail(f"scan: {label}: a loss is not finite")
+    t = call.timings
+    print(f"  [{card()}] {label}: the {k}-step graph: eager first call "
+          f"{t['eager_s']:.3f} s, capture {t['capture_s']:.3f} s, capture "
+          f"end and instantiation {t['instantiate_s']:.3f} s; memory of "
+          f"the first call beyond its {tensor_bytes(stack) / 1e6:.1f} MB of "
+          f"input buffers {mem_k / 2**20:.1f} MiB, the one-step trainer's "
+          f"{mem_1 / 2**20:.1f} MiB", flush=True)
+    if mem_k > SCAN_MEMORY_FACTOR * mem_1:
+        fail(f"scan: {label}: the {k}-step graph took {mem_k} bytes beyond "
+             f"its inputs, more than {SCAN_MEMORY_FACTOR} x the one-step "
+             f"graph's {mem_1}")
+    return dict(launches=launches, trainer=stacked, one_step=one_step,
+                stack=stack, call=call)
+
+
+def time_stacked(label, stacked, stack, one_step, batches) -> float:
+    """The K-step call timed as bench.py's timed_run times it (SCAN_REPS
+    calls, each with its loss readback) in turns with the same K steps as
+    one-step calls, each with its readback; returns ms a stacked step."""
+    k = len(batches)
+    times = {"stacked": [], "one-step": []}
+    for kind in ("stacked", "one-step", "one-step", "stacked"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "stacked":
+            for _ in range(SCAN_REPS):
+                stacked.run_steps(stack)
+            n = SCAN_REPS * k
+        else:
+            for b in batches:
+                one_step.run_steps([b])
+            n = k
+        times[kind].append((time.perf_counter() - t) / n * 1e3)
+    print(f"  [{card()}] {label} step: the {k}-step graph "
+          f"{' / '.join(f'{x:.4f}' for x in times['stacked'])} ms a step "
+          f"({SCAN_REPS} calls, one readback each), {k} one-step calls "
+          f"{' / '.join(f'{x:.4f}' for x in times['one-step'])} ms a step "
+          f"(a readback each)", flush=True)
+    return sum(times["stacked"]) / 2
+
+
+def phase_scan(device, unpadded, profile_path=None) -> dict:
+    """The stacked epoch: bench.py's fullevent stack of SCAN_STEPS distinct
+    packed graphs on the card, run by ``Trainer.run_steps`` as one K-step
+    graph against one-step graphs bit for bit under the constant and the
+    cosine rate (the main path: the K-step replay, counted); the unfused
+    and blocked routes and ``strategy="partitioned"`` at P = 1 over NCCL
+    at SCAN_SHORT_STEPS; memory, capture time, the stack's copy into the
+    capture's buffers, the stacked step's time beside one-step calls,
+    its device idle share, useful TFLOP/s, MFU and the attainable MFU of
+    ``utils/flops.py`` (with ``profile_path``, the profiler's table of
+    the K-step replay).  Returns the launches of the fused K-step
+    replay."""
+    import torch.distributed as dist
+
+    from gnn_fpga_tpu_torch.models import mpnn
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.parallel import multihost
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+    from gnn_fpga_tpu_torch.utils import flops
+
+    tag = f"[{card()}]"
+    t0 = time.perf_counter()
+    graphs = pad_to_covering(unpadded + [
+        make_request(seed, device)
+        for seed in range(len(unpadded), SCAN_STEPS)])
+    it = graphs[0].plans.items
+    print(f"scan: {tag} {SCAN_STEPS} distinct packed graphs built and "
+          f"padded to one capacity in {time.perf_counter() - t0:.2f} s "
+          f"({it.n_recv} + {it.n_item - it.n_recv} items, {it.n_split} "
+          f"splits)",
+          flush=True)
+    cfg = mpnn.SegmentClassifierConfig(
+        input_dim=INPUT_DIM, hidden_dim=HIDDEN, n_iters=N_ITERS,
+        compute_dtype=torch.bfloat16, aggregation="pallas")
+    base = mpnn.init_segment_classifier(
+        cfg, torch.Generator().manual_seed(13), device=device)
+    schedules = {"constant": {},
+                 "cosine": dict(lr_schedule="cosine",
+                                decay_steps=SCAN_DECAY_STEPS,
+                                lr_min_fraction=0.01)}
+    tcfgs = {k: TrainConfig(learning_rate=LEARNING_RATE,
+                            pos_weight=POS_WEIGHT, **kw)
+             for k, kw in schedules.items()}
+
+    def pair(model, tcfg, **kw):
+        return lambda: tuple(Trainer(variant_of(model, device), tcfg, **kw)
+                             for _ in range(2))
+
+    fused = {name: scan_check(f"fused bf16, {name} rate", pair(base, tcfg),
+                              graphs)
+             for name, tcfg in tcfgs.items()}
+    launches = fused["constant"]["launches"]
+    want = fused_step_counts(SCAN_STEPS)
+    print(f"  {tag} launches of one {SCAN_STEPS}-step replay: {launches}",
+          flush=True)
+    if launches != want:
+        fail(f"scan: the {SCAN_STEPS}-step replay launched {launches}, "
+             f"expected {want}")
+    if fused["cosine"]["launches"] != want:
+        fail("scan: the cosine-rate replay launched other kernels")
+    cos = fused["cosine"]["trainer"]
+    rate = cos.optimizer.param_groups[0]["lr"].item()
+    print(f"  {tag} cosine rate after {2 * SCAN_STEPS} steps: {rate:.6e} "
+          f"on the device, {cos.scheduler.rate():.6e} on the host (step "
+          f"{cos.scheduler.last_epoch})", flush=True)
+    if cos.scheduler.last_epoch != 2 * SCAN_STEPS or \
+            abs(rate - cos.scheduler.rate()) > 1e-6 * cos.scheduler.rate():
+        fail("scan: the device's cosine rate and step count left the host's")
+
+    short = graphs[:SCAN_SHORT_STEPS]
+    scan_check(f"unfused bf16, K = {SCAN_SHORT_STEPS}",
+               pair(variant_of(base, device, fused_iteration=False),
+                    tcfgs["cosine"]), short)
+    sectors = [make_sector_batch(seed, device) for seed in range(N_REQUESTS)]
+    from gnn_fpga_tpu_torch.core.capture import signature
+    sectors = [b for b in sectors
+               if signature(b) == signature(sectors[0])]
+    blocked = mpnn.init_segment_classifier(
+        dataclasses.replace(cfg, aggregation="blocked"),
+        torch.Generator().manual_seed(14), device=device)
+    scan_check(f"blocked bf16, K = {SCAN_SHORT_STEPS}",
+               pair(blocked, tcfgs["cosine"]),
+               [sectors[i % len(sectors)] for i in range(SCAN_SHORT_STEPS)])
+    multihost.initialize_single("nccl")
+    gmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,),
+                               device=device.type)
+    pgs = [pg.to(device) for pg in partition_all(short, 1)]
+    part = scan_check(
+        f"partitioned P = 1 ({dist.get_backend()}) fused bf16, K = "
+        f"{SCAN_SHORT_STEPS}",
+        pair(base, tcfgs["cosine"], strategy="partitioned", mesh=gmesh), pgs)
+    if part["launches"] != fused_step_counts(SCAN_SHORT_STEPS):
+        fail(f"scan: the partitioned {SCAN_SHORT_STEPS}-step replay "
+             f"launched {part['launches']}")
+    dist.destroy_process_group()
+
+    # --- timing, the stack's copy, idle share, FLOP accounting
+    run = fused["constant"]
+    stacked, stack = run["trainer"], run["stack"]
+    ms = time_stacked(f"fused bf16 {SCAN_STEPS}-step", stacked, stack,
+                      run["one_step"], graphs)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        run["call"].load(stack)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"  {tag} copying the {tensor_bytes(stack) / 1e6:.1f} MB stack into "
+          f"the capture's buffers: {start.elapsed_time(end) / 5:.3f} ms a "
+          f"call (CUDA events over 5 copies)", flush=True)
+    _, busy = profiled(lambda: stacked.run_steps(stack), profile_path and (
+        profile_path, f"one {SCAN_STEPS}-step replay of the stacked fused "
+        f"bf16 step"))
+    busy_ms = busy / SCAN_STEPS
+    n_node = sum(float(g.node_mask.sum()) for g in graphs) / len(graphs)
+    n_edge = sum(float(g.edge_mask.sum()) for g in graphs) / len(graphs)
+    useful = flops.train_step_flops(flops.segment_classifier_flops(
+        n_node, n_edge, HIDDEN, N_ITERS, INPUT_DIM))
+    rate = useful / (ms / 1e3)
+    mfu = flops.mfu(rate)
+    att, bound, t_tensor, t_f32, t_bytes = flops.attainable(
+        useful, *flops.fused_step_cost(N_EDGE, N_NODE, HIDDEN,
+                                       HIDDEN + INPUT_DIM, N_ITERS))
+    if mfu is None or att is None:
+        fail(f"scan: utils/flops.py has no peaks for "
+             f"{torch.cuda.get_device_name(0)}")
+    print(f"  {tag} stacked fused bf16 step: device time {busy_ms:.4f} ms "
+          f"(torch.profiler over one {SCAN_STEPS}-step replay), wall "
+          f"{ms:.4f} ms with the profiler off: device idle "
+          f"{1 - busy_ms / ms:.1%}; {n_edge / (ms / 1e3):.4e} real edges/s; "
+          f"useful {useful / 1e9:.3f} GFLOP a step, {rate / 1e12:.3f} "
+          f"TFLOP/s, MFU {mfu:.4%} of {flops.chip_peak_tflops():g} TFLOP/s "
+          f"bf16; attainable MFU {att:.2%} ({bound}-bound: tensor "
+          f"{t_tensor * 1e3:.4f} ms, f32 {t_f32 * 1e3:.4f} ms, bytes "
+          f"{t_bytes * 1e3:.4f} ms a step)", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2654,7 +2953,8 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
     from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
     from gnn_fpga_tpu_torch.parallel import multihost
     from gnn_fpga_tpu_torch.parallel import partition as part
-    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
 
     tag = f"[{card()}]"
     multihost.initialize_single("nccl")
@@ -2713,7 +3013,10 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
         [pgs[i % N_REQUESTS] for i in range(N_PART_UNFUSED_STEPS)])]
     unfused_counts = {k: v - fused_counts[k]
                       for k, v in spmm.launch_counts().items()}
-    dp_losses = dp_trainer.run_steps(batches)
+    # the 5-step graph run twice: eagerly (and captured), then replayed
+    dp_stack = stack_batches(batches)
+    dp_losses = torch.cat([torch.from_numpy(dp_trainer.run_steps(dp_stack))
+                           for _ in range(2)])
     launches = spmm.launch_counts()
     # --- checks (not counted)
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
@@ -2721,9 +3024,7 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
                    for k, v in unfused_counts.items()}
     print(f"  launches per partitioned step: fused {per_step}; unfused "
           f"{per_unfused}", flush=True)
-    if per_step != expected_counts(iteration_pair=N_ITERS, gather_pair=1,
-                                   iteration_pair_bwd=N_ITERS,
-                                   gather_pair_bwd=1):
+    if per_step != fused_step_counts():
         fail(f"parallel: the partitioned steps launched {per_step} a step")
     if per_unfused != expected_counts(gather_pair=N_ITERS + 1,
                                       gather_pair_bwd=N_ITERS + 1,
@@ -2734,11 +3035,13 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
     _loss_curve(losses, "P = 1 captured partitioned")
     if not all(map(math.isfinite, unfused_losses)):
         fail("parallel: an unfused partitioned loss is not finite")
-    single = Trainer(variant_of(dense, device), tcfg).run_steps(batches)
+    single_tr = Trainer(variant_of(dense, device), tcfg)
+    single = torch.cat([torch.from_numpy(single_tr.run_steps(dp_stack))
+                        for _ in range(2)])
     print(f"  dp (world of 1) losses {' '.join(f'{x:.6f}' for x in dp_losses)}"
           f"; single {' '.join(f'{x:.6f}' for x in single)}", flush=True)
-    compare("dp losses (world of 1) vs single", torch.from_numpy(dp_losses),
-            torch.from_numpy(single), CAPTURE_RTOL, 0.0)
+    compare("dp losses (world of 1) vs single", dp_losses, single,
+            CAPTURE_RTOL, 0.0)
     vloss = [trainer._eval_loss(pgs[0]) for _ in range(2)]
     probs, _, _ = trainer.predict(iter(pgs[:2]), 2)
     kinds = sorted({k for k, _ in trainer._captured})
@@ -2755,22 +3058,27 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
     # --- P = 1 partitioned step against the single-device fused step
     fused_single = Trainer(variant_of(model, device), tcfg)
     fused_single.run_steps(graphs[:1])
-    times = {"partitioned P = 1": [], "single device": []}
+    runs = {"partitioned P = 1": (trainer, stack_batches([pgs[0]] * 20)),
+            "single device": (fused_single,
+                              stack_batches(graphs[:1] * 20))}
+    for tr, stack in runs.values():           # eager and captured first
+        tr.run_steps(stack)
+    times = {label: [] for label in runs}
     for _ in range(2):
-        for label, tr, batch in (("partitioned P = 1", trainer, pgs[0]),
-                                 ("single device", fused_single,
-                                  graphs[0])):
+        for label, (tr, stack) in runs.items():
             t = time.perf_counter()
-            tr.run_steps([batch] * 20)
+            tr.run_steps(stack)
             times[label].append((time.perf_counter() - t) / 20 * 1e3)
-    print(f"  {tag} fused bf16 train step, 20 replays with one readback, "
-          f"twice in turns: " + "; ".join(
+    print(f"  {tag} fused bf16 train step, a 20-step graph replayed with "
+          f"one readback, twice in turns: " + "; ".join(
               f"{k} {' / '.join(f'{x:.3f}' for x in v)} ms"
               for k, v in times.items())
           + f"; first partitioned steps {step_times(step_ms)}", flush=True)
     for label, run in (
-            ("partitioned P = 1", lambda: trainer.run_steps([pgs[0]] * 3)),
-            ("single device", lambda: fused_single.run_steps(graphs[:1] * 3))):
+            ("partitioned P = 1",
+             lambda: one_step_calls(trainer, [pgs[0]] * 3)),
+            ("single device",
+             lambda: one_step_calls(fused_single, graphs[:1] * 3))):
         wall, busy = profiled(run, profile_path and (
             profile_path, f"3 replayed {label} fused bf16 train steps"))
         print(f"  {tag} {label} step, replayed: device time {busy / 3:.3f} "
@@ -2894,10 +3202,7 @@ def run_parallel_world(world, device, model, g, dense, batches) -> dict:
     counts = {k: sum(out["launches"][k] for out in outs)
               for k in o["launches"]}
     steps = PARALLEL_STEPS * world
-    expect = expected_counts(iteration_pair=N_ITERS * steps,
-                             gather_pair=steps,
-                             iteration_pair_bwd=N_ITERS * steps,
-                             gather_pair_bwd=steps)
+    expect = fused_step_counts(steps)
     if counts != expect:
         fail(f"parallel: the {world} ranks' steps launched {counts}, "
              f"expected {expect}")
@@ -2973,7 +3278,8 @@ def parallel_rank_work(rank, world, inputs) -> dict:
     from gnn_fpga_tpu_torch.ops.cuda import spmm
     from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
     from gnn_fpga_tpu_torch.parallel import partition as part
-    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
 
     device = torch.device(inputs["device"])
     gmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.GRAPH_AXIS,),
@@ -2989,6 +3295,8 @@ def parallel_rank_work(rank, world, inputs) -> dict:
 
     pg = part.partition_graph(inputs["graph"], world, plans=True)
     shard = pg.shard(rank).to(device)
+    # the Trainer takes the whole partitioned graph, each rank its shard
+    steps = stack_batches([pg], device)
     model = fresh(inputs["state"])
     with torch.no_grad():
         probs = comm.all_gather(torch.sigmoid(
@@ -3008,7 +3316,7 @@ def parallel_rank_work(rank, world, inputs) -> dict:
     losses, step_ms = [], []
     for _ in range(PARALLEL_STEPS):
         t = time.perf_counter()
-        losses.append(float(trainer.run_steps([shard])[0]))
+        losses.append(float(trainer.run_steps(steps)[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = spmm.launch_counts()
     dp_losses = None
@@ -3023,8 +3331,7 @@ def parallel_rank_work(rank, world, inputs) -> dict:
     return dict(
         probs=probs.float().cpu(), edge_mask=pg.edge_mask,
         grads={k: v.cpu() for k, v in grads.items()}, losses=losses,
-        params=torch.cat([p.detach().reshape(-1).cpu()
-                          for p in trainer.model.parameters()]),
+        params=params_of(trainer.model).cpu(),
         step_ms=step_ms, launches=launches,
         halo=pg.halo_size, needs=halo_needs(pg), n_local=pg.n_local,
         n_edge=pg.senders.shape[1], dp_losses=dp_losses,
@@ -3082,9 +3389,10 @@ def main():
     ap.add_argument("--profile", metavar="PATH",
                     help="also write torch.profiler tables to PATH")
     ap.add_argument("--phase", action="append",
-                    choices=tuple(MEASUREMENTS) + ("prepare", "parallel"),
+                    choices=tuple(MEASUREMENTS) + ("prepare", "parallel",
+                                                   "scan"),
                     help="run only this phase (a measurement phase on the "
-                         "first packed graph, prepare or parallel; "
+                         "first packed graph, prepare, parallel or scan; "
                          "repeatable): no result line")
     args = ap.parse_args()
     kind = phase_device()
@@ -3094,15 +3402,18 @@ def main():
     phase_build()
     if args.phase:
         g = (make_request(0, device)
-             if set(args.phase) - {"prepare", "parallel"} else None)
+             if set(args.phase) - {"prepare", "parallel", "scan"} else None)
         for name in args.phase:
+            unpadded = [make_request(seed, device)
+                        for seed in range(N_REQUESTS)] \
+                if name in ("parallel", "scan") else None
             if name == "prepare":
                 phase_prepare(device)
             elif name == "parallel":
-                unpadded = [make_request(seed, device)
-                            for seed in range(N_REQUESTS)]
                 phase_parallel(device, pad_to_covering(unpadded), unpadded,
                                args.profile)
+            elif name == "scan":
+                phase_scan(device, unpadded, args.profile)
             else:
                 MEASUREMENTS[name](g)
         return
@@ -3126,7 +3437,8 @@ def main():
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
     phase_capture(device, graphs, unpadded)
-    paths += (phase_parallel(device, graphs, unpadded, args.profile),)
+    paths += (phase_scan(device, unpadded, args.profile),
+              phase_parallel(device, graphs, unpadded, args.profile))
     prep_launches, kernels[("select_segments", torch.bfloat16)] = \
         phase_prepare(device)
     paths += (prep_launches,)

@@ -19,19 +19,29 @@ build) therefore happens before capture.  A capture that fails raises: it
 never degrades to the eager path.  On the CPU the same static buffers are
 filled and ``fn`` runs on them eagerly, so the plumbing runs in tests.
 
+The JAX package also scans an epoch of stacked batches inside one jit
+(``lax.scan``, ``Trainer.run_steps``).  Its counterpart is a captured call
+whose body is :func:`scan`: ``K`` steps in order over the slices of one
+stack in the static buffers, all recorded in one graph, so that one
+replay runs the ``K`` steps; the stack's leading axis makes ``K`` part of
+the signature.  Memory freed by step ``k`` during the capture goes back
+to the capture's pool, where step ``k + 1`` takes it again.
+
 Kernel launch counts (``ops/cuda/spmm.py::launch_counts``): the capture
 records the launches it made and takes them back, since capture launches
-nothing; each replay adds them, since a replay launches those kernels.
+nothing; each replay adds them, since a replay launches those kernels
+(``K`` steps' launches for a K-step graph).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import time
 
 import torch
 
-from gnn_fpga_tpu_torch.core.graph import TensorFields
+from gnn_fpga_tpu_torch.core.graph import TensorFields, index_fields
 
 
 def signature(batch) -> tuple:
@@ -49,6 +59,15 @@ def signature(batch) -> tuple:
             (f.name, signature(getattr(batch, f.name)))
             for f in dataclasses.fields(batch))
     return batch
+
+
+def scan(step, stacked) -> torch.Tensor:
+    """``step(stacked[k])`` for each slice ``k`` of the leading axis, in
+    order, the ``K`` outputs (0-d tensors, a step's loss) stacked into one
+    ``[K]`` tensor: the body of a K-step captured call, the counterpart of
+    ``lax.scan`` over a stack of batches."""
+    n = next(stacked.tensors()).shape[0]
+    return torch.stack([step(index_fields(stacked, k)) for k in range(n)])
 
 
 def _buffers_like(batch, device):
@@ -73,7 +92,9 @@ class CapturedCall:
     another signature raises ``ValueError``) and returns ``fn``'s output:
     from the second call on it is the captured output, which the next
     call overwrites.  :meth:`replay` runs the program again on the
-    buffers as they are.
+    buffers as they are.  ``timings`` holds the host seconds of the first
+    call's eager run, of recording the capture, and of ending it (where
+    the graph is instantiated).
     """
 
     def __init__(self, fn, device, pool=None):
@@ -85,6 +106,7 @@ class CapturedCall:
         self.output = None
         self.graph = None
         self.launches: dict = {}
+        self.timings: dict = {}
 
     @property
     def captured(self) -> bool:
@@ -123,6 +145,7 @@ class CapturedCall:
     def _warm_up_and_capture(self):
         from gnn_fpga_tpu_torch.ops.cuda import spmm
 
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -131,6 +154,8 @@ class CapturedCall:
         current.wait_stream(side)
         if isinstance(out, torch.Tensor):
             out.record_stream(current)
+        torch.cuda.synchronize(self.device)    # as the capture's start does
+        t1 = time.perf_counter()
         before = spmm.launch_counts()
         graph = torch.cuda.CUDAGraph()
         # A graph that the collector frees while this one is captured
@@ -144,10 +169,14 @@ class CapturedCall:
             # its own stream while the capture runs
             with torch.cuda.graph(graph, pool=self.pool,
                                   capture_error_mode="thread_local"):
+                t2 = time.perf_counter()
                 self.output = self.fn(self.inputs)
+                t3 = time.perf_counter()
         finally:
             if enabled:
                 gc.enable()
+        self.timings = dict(eager_s=t1 - t0, capture_s=t3 - t2,
+                            instantiate_s=time.perf_counter() - t3)
         after = spmm.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         spmm.add_launch_counts({k: -n for k, n in self.launches.items()})

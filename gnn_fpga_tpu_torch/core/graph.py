@@ -63,6 +63,59 @@ class TensorFields:
                 yield from v.tensors()
 
 
+def stack_fields(items, name: str = "batch"):
+    """Stack tensors, or :class:`TensorFields` of one structure, along a
+    new axis 0 (what ``jax.tree.map(jnp.stack, ...)`` does to pytrees).
+
+    The tensors of a field must agree in shape, dtype and device, a field
+    must be None in all items or in none, and host fields (a plan's node,
+    edge, item and slot counts) must be equal: anything else raises
+    ``ValueError`` naming the field (``name`` and its path).  The stack of
+    one item is a view of it."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        if any(not isinstance(t, torch.Tensor) or t.shape != first.shape
+               or t.dtype != first.dtype or t.device != first.device
+               for t in items):
+            raise ValueError(
+                f"cannot stack {name}: shapes, dtypes or devices differ: "
+                f"{[_describe(t) for t in items]}")
+        # a stack of one is a view of it
+        return first.unsqueeze(0) if len(items) == 1 else torch.stack(items)
+    if any(type(it) is not type(first) for it in items):
+        raise ValueError(f"cannot stack {name}: types differ: "
+                         f"{[type(it).__name__ for it in items]}")
+    kw = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(it, f.name) for it in items]
+        path = f"{name}.{f.name}"
+        held = [isinstance(v, (torch.Tensor, TensorFields)) for v in vals]
+        if any(held) and not all(held):
+            raise ValueError(f"cannot stack {path}: "
+                             f"{[_describe(v) for v in vals]}")
+        if held[0]:
+            kw[f.name] = stack_fields(vals, path)
+        elif any(v != vals[0] for v in vals):
+            raise ValueError(f"cannot stack {path}: {vals}")
+    return dataclasses.replace(first, **kw)
+
+
+def _describe(t) -> str:
+    if not isinstance(t, torch.Tensor):
+        return repr(t)
+    return f"{tuple(t.shape)} {t.dtype} {t.device}"
+
+
+def index_fields(v, k, axis: int = 0):
+    """``k`` (an index or a slice) of axis ``axis`` of every tensor of
+    ``v`` (a tensor or a :class:`TensorFields`): with the defaults, one
+    item of a :func:`stack_fields` stack without its leading axis.  Views,
+    no copy."""
+    if isinstance(v, torch.Tensor):
+        return v[(slice(None),) * axis + (k,)]
+    return v._map(lambda t: index_fields(t, k, axis))
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph(TensorFields):
     """A (possibly padded, possibly batched) COO hit graph.

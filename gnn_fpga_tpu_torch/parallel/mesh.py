@@ -25,6 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
 from gnn_fpga_tpu_torch.core.device import default_device
+from gnn_fpga_tpu_torch.core.graph import index_fields
 
 DATA_AXIS = "data"
 GRAPH_AXIS = "graph"
@@ -75,23 +76,21 @@ def batch_sharded(mesh: DeviceMesh, axis: str = DATA_AXIS) -> tuple:
                  for name in mesh.mesh_dim_names)
 
 
-def _slice_leading(v, sl):
-    if isinstance(v, torch.Tensor):
-        return v[sl]
-    return v._map(lambda t: _slice_leading(t, sl))
-
-
-def shard_batch(tree, mesh: DeviceMesh, axis: str = DATA_AXIS):
-    """This rank's slice of the leading axis of every tensor of ``tree`` (a
-    tensor or a :class:`~gnn_fpga_tpu_torch.core.graph.TensorFields` such
-    as a batched Graph), on this rank's device: rank ``r`` of ``P`` along
-    ``axis`` takes rows ``[r * B / P, (r + 1) * B / P)``."""
+def shard_batch(tree, mesh: DeviceMesh, axis: str = DATA_AXIS,
+                dim: int = 0):
+    """This rank's slice of dimension ``dim`` of every tensor of ``tree``
+    (a tensor or a :class:`~gnn_fpga_tpu_torch.core.graph.TensorFields`
+    such as a batched Graph), on this rank's device: rank ``r`` of ``P``
+    along mesh dimension ``axis`` takes rows ``[r * B / P, (r + 1) * B /
+    P)``.  ``dim=1`` splits the batch axis of a stack of batches
+    ``[K, B, ...]`` (:func:`~gnn_fpga_tpu_torch.train.trainer.
+    stack_batches`), as the JAX package shards ``P(None, DATA)``."""
     r, p = mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(
         axis))
     n = (tree if isinstance(tree, torch.Tensor) else next(tree.tensors())
-         ).shape[0]
+         ).shape[dim]
     if n % p:
         raise ValueError(f"batch {n} not divisible by {p} ranks on {axis!r}")
     per = n // p
-    return _slice_leading(tree, slice(r * per, (r + 1) * per)).to(
+    return index_fields(tree, slice(r * per, (r + 1) * per), dim).to(
         mesh_device(mesh))

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gnn_fpga_tpu_torch.core.graph import Graph, TensorFields, _np
+from gnn_fpga_tpu_torch.core.graph import (Graph, TensorFields, _np,
+                                           index_fields, stack_fields)
 from gnn_fpga_tpu_torch.models import mpnn
 from gnn_fpga_tpu_torch.ops import segment as ops
 from gnn_fpga_tpu_torch.parallel import data_parallel as dp
@@ -111,29 +112,7 @@ class PartitionedGraph(TensorFields):
 
     def shard(self, p: int) -> "PartitionedGraph":
         """Shard ``p`` alone: every tensor's leading axis indexed."""
-        return _index(self, p)
-
-
-def _index(v, p):
-    if isinstance(v, torch.Tensor):
-        return v[p]
-    return v._map(lambda t: _index(t, p))
-
-
-def _stack(items):
-    """Stack a list of tensors or same-structure TensorFields along a new
-    axis 0; host fields must agree."""
-    first = items[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(items)
-    kw = {}
-    for f in dataclasses.fields(first):
-        vals = [getattr(it, f.name) for it in items]
-        if isinstance(vals[0], (torch.Tensor, TensorFields)):
-            kw[f.name] = _stack(vals)
-        elif any(v != vals[0] for v in vals):
-            raise ValueError(f"shards differ in {f.name}: {vals}")
-    return dataclasses.replace(first, **kw)
+        return index_fields(self, p)
 
 
 def _round_up8(x: int) -> int:
@@ -269,8 +248,8 @@ def partition_graph(g: Graph, n_parts: int, plans: bool = False,
                      for p in range(n_parts)]
         if capacity is None:
             capacity = spmm.PlanCapacity.covering(*per_shard)
-        stacked_plans = _stack([spmm.pad_plans(pl, capacity)
-                                for pl in per_shard])
+        stacked_plans = stack_fields([spmm.pad_plans(pl, capacity)
+                                      for pl in per_shard], "plans")
 
     as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt))
     return PartitionedGraph(
@@ -439,10 +418,19 @@ def sharded_logits(model, shard: PartitionedGraph, comm: Comm, masks=None,
     return edge_logits(out_p, h, extend(h), masks_e).float()
 
 
-def local_shard(pg: PartitionedGraph, rank: int, device) -> PartitionedGraph:
-    """Rank ``rank``'s shard of ``pg`` (a stacked PartitionedGraph, or that
-    shard already) on ``device``."""
-    return (pg.shard(rank) if pg.x.ndim == 3 else pg).to(device)
+def local_shard(pg: PartitionedGraph, rank: int, device,
+                axis: int = 0) -> PartitionedGraph:
+    """Rank ``rank``'s shard of ``pg`` on ``device``.  ``axis`` is where
+    ``pg`` holds its P shards: 0 for one partitioned graph (``x`` is
+    ``[P, N_local, F]``), 1 for a stack of them (``[K, P, N_local, F]``,
+    from :func:`~gnn_fpga_tpu_torch.train.trainer.stack_batches`, whose
+    shard keeps the step axis K), as the JAX package shards
+    ``P(None, GRAPH)``; any other ``x`` raises ``ValueError``."""
+    if pg.x.dim() != 3 + axis:
+        raise ValueError(
+            f"local_shard: x of shape {tuple(pg.x.shape)} does not hold "
+            f"the shards on axis {axis} (expected {3 + axis} dimensions)")
+    return index_fields(pg, rank, axis).to(device)
 
 
 def sharded_loss(model, shard: PartitionedGraph, comm: Comm, masks=None,

@@ -10,11 +10,15 @@ On a CUDA device the step, the eval loss and predict each run as one
 captured CUDA graph for each static batch signature
 (``core/capture.py``), the counterpart of the JAX package's ``jax.jit``:
 the first batch of a signature runs eagerly and is captured, every later
-one is copied into the capture's static buffers and replayed.  The cosine
-rate is then a device tensor that the schedule fills before each step,
-and Adam runs with ``capturable=True``.  ``Trainer(capture=False)``
-dispatches every op from Python instead; on the CPU the static-buffer
-body runs eagerly.
+one is copied into the capture's static buffers and replayed.
+:meth:`Trainer.run_steps` takes a stack of batches (:func:`stack_batches`)
+and runs one step a slice in one call, the JAX package's ``lax.scan``
+inside ``jit``: on the card one replay of a graph that holds all ``K``
+steps.  The cosine rate is a device tensor that each step's body computes
+from a step count on the device, so one mechanism serves the one-step
+and the K-step graphs, and Adam runs with ``capturable=True``.
+``Trainer(capture=False)`` dispatches every op from Python instead; on the
+CPU the static-buffer body runs eagerly.
 
 ``strategy="dp"`` and ``"partitioned"`` run the same engine on a device
 mesh of one rank a device (``parallel/``): each rank takes its slice of
@@ -30,17 +34,17 @@ gloo the steps run eagerly and ``capture=True`` raises.
 
 Deliberate differences from the JAX package: the trainer takes the
 ``nn.Module`` (``model(graph, masks) -> logits``) instead of a
-``logits_fn`` over a parameter pytree; :meth:`Trainer.run_steps` loops
-over a sequence of graphs (the JAX package's ``lax.scan`` over stacked
-batches), one replay a graph, and reads the losses back once;
-:meth:`Trainer.fit` keeps an epoch's losses on the device and reads them
-back once an epoch (unless ``verbose``); checkpoints go through
-``torch.save``.
+``logits_fn`` over a parameter pytree; :meth:`Trainer.run_steps` also
+takes a sequence of batches, stacked first, one stack (and one call) a
+run of one signature; :meth:`Trainer.fit` keeps an epoch's losses on the
+device and reads them back once an epoch (unless ``verbose``);
+checkpoints go through ``torch.save``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -56,8 +60,8 @@ from torch import nn
 
 from gnn_fpga_tpu_torch.compress.pruning import (apply_masks_to_params,
                                                  weight_matrices)
-from gnn_fpga_tpu_torch.core.capture import CapturedCall, signature
-from gnn_fpga_tpu_torch.core.graph import Graph
+from gnn_fpga_tpu_torch.core.capture import CapturedCall, scan, signature
+from gnn_fpga_tpu_torch.core.graph import Graph, TensorFields, stack_fields
 from gnn_fpga_tpu_torch.train import metrics as metrics_lib
 from gnn_fpga_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -91,43 +95,78 @@ def cosine_decay(step: int, decay_steps: int, alpha: float) -> float:
 
 
 class CosineRate:
-    """The cosine schedule: after each optimizer step, :meth:`step` sets
-    every parameter group's rate to ``learning_rate * cosine_decay(t)``
-    for the next step ``t`` (the first update uses ``t = 0``).  A group
-    whose rate is a tensor (a captured step reads its rate from device
-    memory) has it filled in place, on the current stream, before the next
-    step is replayed; a float rate is replaced.  ``last_epoch`` and the
-    state dict keep the names of the ``LambdaLR`` this replaces, so
-    checkpoints resume either way."""
+    """The cosine schedule: the rate of step ``t`` (the first update is
+    ``t = 0``) is ``learning_rate * cosine_decay(t)``.
+
+    ``count`` is the number of the next step.  When the groups' rate is a
+    tensor (Adam, and any captured step), ``count`` is a 0-d f32 tensor on
+    the same device and :meth:`advance`, which a step's body calls after
+    its update, moves it on and writes the next step's rate in f32 tensor
+    ops, in place: a captured step, or ``K`` steps captured in one graph,
+    then computes each step's own rate on the device, as optax computes
+    its schedule in f32 inside the JAX package's scan.  A float rate (SGD,
+    never captured) is computed on the host and replaced.  ``last_epoch``
+    counts the steps taken on the host; the caller adds a call's steps to
+    it after the call (:meth:`step` does both, outside a step's body).
+    ``last_epoch`` and the state dict keep the names of the ``LambdaLR``
+    this replaces, so checkpoints resume either way."""
 
     def __init__(self, optimizer, cfg: TrainConfig):
         self.optimizer = optimizer
         self.cfg = cfg
         self.last_epoch = 0
+        lr = optimizer.param_groups[0]["lr"]
+        self.count = (torch.zeros((), dtype=torch.float32, device=lr.device)
+                      if isinstance(lr, torch.Tensor) else 0)
         self.apply()
 
     def rate(self) -> float:
+        """The rate of step ``last_epoch``, in float64 on the host."""
         return self.cfg.learning_rate * cosine_decay(
             self.last_epoch, self.cfg.decay_steps, self.cfg.lr_min_fraction)
 
+    def _device_rate(self) -> torch.Tensor:
+        """The rate of step ``count`` in f32 tensor ops, in optax's order."""
+        cfg = self.cfg
+        t = torch.clamp(self.count, max=float(cfg.decay_steps))
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / cfg.decay_steps))
+        decayed = (1 - cfg.lr_min_fraction) * cosine + cfg.lr_min_fraction
+        return cfg.learning_rate * decayed
+
     def apply(self) -> None:
-        """Write the rate of step ``last_epoch`` into every group."""
-        lr = self.rate()
+        """Write the rate of step ``count`` into every group."""
+        if isinstance(self.count, torch.Tensor):
+            lr = self._device_rate()
+            for group in self.optimizer.param_groups:
+                group["lr"].copy_(lr)
+            return
+        lr = self.cfg.learning_rate * cosine_decay(
+            self.count, self.cfg.decay_steps, self.cfg.lr_min_fraction)
         for group in self.optimizer.param_groups:
-            if isinstance(group["lr"], torch.Tensor):
-                group["lr"].fill_(lr)
-            else:
-                group["lr"] = lr
+            group["lr"] = lr
+
+    def advance(self) -> None:
+        """After an optimizer step, inside its body: the next step's
+        count and rate."""
+        if isinstance(self.count, torch.Tensor):
+            self.count.add_(1)
+        else:
+            self.count += 1
+        self.apply()
 
     def step(self) -> None:
+        self.advance()
         self.last_epoch += 1
-        self.apply()
 
     def state_dict(self) -> dict:
         return {"last_epoch": self.last_epoch}
 
     def load_state_dict(self, state: dict) -> None:
         self.last_epoch = int(state["last_epoch"])
+        if isinstance(self.count, torch.Tensor):
+            self.count.fill_(self.last_epoch)
+        else:
+            self.count = self.last_epoch
         self.apply()
 
 
@@ -138,10 +177,11 @@ def make_optimizer(cfg: TrainConfig, params, device_rate: bool = False):
     uses step 0.
 
     ``device_rate``: the rate of the cosine schedule is a 0-d f32 tensor
-    on the parameters' device, filled in place by the scheduler, so that
-    a captured step reads each step's rate; Adam then runs with
-    ``capturable=True`` on a CUDA device (its step count on the device).
-    SGD takes no tensor rate: sgd with the cosine schedule raises here.
+    on the parameters' device, which the scheduler computes in place from
+    its step count on the device, so that captured steps read each step's
+    rate; Adam then runs with ``capturable=True`` on a CUDA device (its
+    step count on the device).  SGD takes no tensor rate: sgd with the
+    cosine schedule raises here.
     """
     params = list(params)
     device = params[0].device if params else torch.device("cpu")
@@ -168,6 +208,36 @@ def make_optimizer(cfg: TrainConfig, params, device_rate: bool = False):
     if cfg.lr_schedule == "constant":
         return opt, None
     return opt, CosineRate(opt, cfg)
+
+
+def stack_batches(batches: Sequence, device=None):
+    """Stack batches of one static signature along a new leading axis for
+    :meth:`Trainer.run_steps` (the scan axis: one optimizer step a slice),
+    on ``device`` (default: the first batch's), where the stack should
+    live: on the card, where each call reads it.
+
+    Takes Graphs (packed with plans, batched, with blocks) and
+    :class:`~gnn_fpga_tpu_torch.parallel.partition.PartitionedGraph`s.
+    Their tensors must agree in shape and dtype and their host fields must
+    be equal (:func:`~gnn_fpga_tpu_torch.core.graph.stack_fields`), else
+    ``ValueError``: batches with plans must be padded to one
+    ``PlanCapacity`` first (``pad_plans``, ``batch_capacity``,
+    ``PlanCapacity.covering``)."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError("stack_batches needs at least one batch")
+    device = (next(batches[0].tensors()).device if device is None
+              else torch.device(device))
+    try:
+        stacked = stack_fields(batches, type(batches[0]).__name__)
+    except ValueError as err:
+        if ".plans" in str(err):
+            raise ValueError(
+                f"{err}; batches with plans must be padded to one "
+                "PlanCapacity first (pad_plans, batch_capacity, "
+                "PlanCapacity.covering)") from None
+        raise
+    return stacked.to(device)
 
 
 def l1_penalty(model: nn.Module, modules=("edge", "node"),
@@ -317,14 +387,14 @@ class Trainer:
         return loss
 
     def _make_optimizer(self):
-        # Adam takes its rate from the device whether or not the step is
-        # captured, so that the captured and eager steps update alike;
-        # SGD only when captured (where its cosine rate raises)
-        cuda = self.device.type == "cuda"
+        # Adam takes its cosine rate from the device (on the CPU too)
+        # whether or not the step is captured, so that captured and eager
+        # steps update alike; SGD only when captured on a card (where its
+        # cosine rate raises)
         return make_optimizer(
             self.cfg, self.model.parameters(),
-            device_rate=cuda and (self.capture or self.cfg.optimizer
-                                  == "adam"))
+            device_rate=self.cfg.optimizer == "adam"
+            or (self.capture and self.device.type == "cuda"))
 
     def _parallel_loss(self, local, train: bool):
         """``(objective, loss)`` of the dp or partitioned strategy on this
@@ -349,22 +419,30 @@ class Trainer:
         return dp.global_mean(s, c, self._comm)
 
     def _step_body(self, graph: Graph) -> torch.Tensor:
-        """One optimizer step on ``graph``; what a capture records."""
+        """One optimizer step on ``graph``, then the next step's cosine
+        rate from the step count on the device: what a capture records,
+        once for the one-step call and ``K`` times for the K-step call
+        (:func:`~gnn_fpga_tpu_torch.core.capture.scan`), so that the two
+        agree bit for bit."""
         if self._comm is not None:
             from gnn_fpga_tpu_torch.parallel import data_parallel as dp
 
-            return dp.train_step(
+            loss = dp.train_step(
                 self.optimizer, self.model,
                 lambda g: self._parallel_loss(g, True), graph, self._comm,
                 self.masks)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(graph)
-        loss.backward()
-        self.optimizer.step()
-        if self.masks is not None:
-            # pruned weights stay exactly 0
-            apply_masks_to_params(self.model, self.masks)
-        return loss.detach()
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self._loss(graph)
+            loss.backward()
+            self.optimizer.step()
+            if self.masks is not None:
+                # pruned weights stay exactly 0
+                apply_masks_to_params(self.model, self.masks)
+            loss = loss.detach()
+        if self.scheduler is not None:
+            self.scheduler.advance()
+        return loss
 
     def _eval_body(self, graph: Graph) -> torch.Tensor:
         with torch.no_grad():
@@ -381,26 +459,32 @@ class Trainer:
                 return self._comm.all_gather(probs)
             return probs
 
-    def _local(self, batch):
+    def _local(self, batch, stacked: bool = False):
         """This rank's part of a batch, on its device: its slice (dp), its
-        shard (partitioned), or the batch as given (single)."""
+        shard (partitioned), or the batch as given (single).  A
+        ``stacked`` batch (:func:`stack_batches`) is split along axis 1,
+        each step's batch as the one-step call splits it."""
+        axis = 1 if stacked else 0
         if self.strategy == "dp":
             from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
 
-            return mesh_lib.shard_batch(batch, self.mesh, mesh_lib.DATA_AXIS)
+            return mesh_lib.shard_batch(batch, self.mesh, mesh_lib.DATA_AXIS,
+                                        dim=axis)
         if self.strategy == "partitioned":
             from gnn_fpga_tpu_torch.parallel import partition as part
 
-            return part.local_shard(batch, self._comm.rank, self.device)
+            return part.local_shard(batch, self._comm.rank, self.device,
+                                    axis)
         return batch
 
-    def _run(self, kind: str, body, graph: Graph) -> torch.Tensor:
+    def _run(self, kind: str, body, graph: Graph,
+             stacked: bool = False) -> torch.Tensor:
         """``body(graph)``: eagerly with ``capture=False``, else through
         the captured call of ``kind`` for the graph's signature (made at
         its first batch).  The result is the caller's own (a replay's
         output is copied out of the capture).  Under dp or partitioned,
         ``graph`` becomes this rank's part of it first."""
-        graph = self._local(graph)
+        graph = self._local(graph, stacked)
         if not self.capture:
             return body(graph)
         key = (kind, signature(graph))
@@ -425,8 +509,37 @@ class Trainer:
     def _train_step(self, graph: Graph) -> torch.Tensor:
         loss = self._run("train", self._step_body, graph)
         if self.scheduler is not None:
-            self.scheduler.step()
+            self.scheduler.last_epoch += 1
         return loss
+
+    def _train_steps(self, stacked) -> torch.Tensor:
+        """One optimizer step a slice of ``stacked``, in one call: on the
+        card one replay of the K-step graph; the ``[K]`` losses stay on
+        the device."""
+        if stacked.x.dim() < 3:
+            raise ValueError(
+                "run_steps takes a stack of batches (stack_batches) or a "
+                f"sequence of batches, not one graph of x "
+                f"{tuple(stacked.x.shape)}")
+        losses = self._run("train", functools.partial(scan, self._step_body),
+                           stacked, stacked=True)
+        if self.scheduler is not None:
+            self.scheduler.last_epoch += losses.shape[0]
+        return losses
+
+    def _stacks(self, batches) -> list:
+        """``batches`` as stacks for :meth:`_train_steps`: a stack as it
+        is; a sequence through :func:`stack_batches`, one stack a run of
+        consecutive batches of one signature."""
+        if isinstance(batches, TensorFields):
+            return [batches]
+        runs = []
+        for b in batches:
+            if runs and signature(b) == signature(runs[-1][-1]):
+                runs[-1].append(b)
+            else:
+                runs.append([b])
+        return [stack_batches(run) for run in runs]
 
     def _eval_loss(self, graph: Graph) -> float:
         return float(self._run("eval", self._eval_body, graph))
@@ -472,23 +585,31 @@ class Trainer:
                 self.save_checkpoint(False)
             self._write_metrics(record)
 
-    def run_steps(self, batches: Sequence[Graph]) -> np.ndarray:
-        """One optimizer step per graph of ``batches`` (on the card, one
-        replay of the captured step each, after the first of a signature);
-        the losses stay on the device and are read back once.  Returns them
-        as float32."""
-        losses = [self._train_step(g) for g in batches]
-        return torch.stack(losses).float().cpu().numpy()
+    def run_steps(self, stacked) -> np.ndarray:
+        """One optimizer step per leading-axis slice of ``stacked`` (a
+        stack from :func:`stack_batches`) in one call: on the card, one
+        replay of a graph that holds all ``K`` steps (captured at the
+        first stack of a signature, which includes ``K``), each step's
+        collectives under dp or partitioned included.  A sequence of
+        batches is stacked first (:meth:`_stacks`).  The losses stay on
+        the device and are read back once, as float32."""
+        return self._run_stacks(self._stacks(stacked))
 
-    def fit_stacked(self, train_epoch: Sequence[Graph], n_epochs: int,
+    def _run_stacks(self, stacks) -> np.ndarray:
+        losses = torch.cat([self._train_steps(s) for s in stacks])
+        return losses.float().cpu().numpy()
+
+    def fit_stacked(self, train_epoch, n_epochs: int,
                     valid_batch: Optional[Graph] = None,
                     verbose: int = 0) -> None:
-        """:meth:`fit` over a fixed epoch of batches through
-        :meth:`run_steps`, with the same checkpoint/metrics semantics."""
+        """:meth:`fit` over a fixed stacked epoch of batches, one
+        :meth:`run_steps` call an epoch, with the same checkpoint/metrics
+        semantics; a sequence is stacked once, before the first epoch."""
+        stacks = self._stacks(train_epoch)
         epoch_start = self.epoch
         for i in range(epoch_start, epoch_start + n_epochs):
             t0 = time.perf_counter()
-            losses = self.run_steps(train_epoch)
+            losses = self._run_stacks(stacks)
             dt = time.perf_counter() - t0
             avg_loss = float(losses.mean())
             self.train_losses.append(avg_loss)

@@ -1071,7 +1071,10 @@ def test_captured_steps_match_eager_steps(dev, fused, dtype):
         model.load_state_dict(base.state_dict())
         tr = Trainer(model, cfg, capture=capture)
         tsp.reset_launch_counts()
-        runs[capture] = (tr.run_steps(batches), tsp.launch_counts(),
+        # one step a call: the first eager and captured, then replays
+        runs[capture] = (np.concatenate([tr.run_steps([b])
+                                         for b in batches]),
+                         tsp.launch_counts(),
                          [p.detach().clone() for p in model.parameters()])
         if capture:
             (call,) = tr._captured.values()
@@ -1187,6 +1190,141 @@ def test_a_capture_that_fails_raises(dev):
     assert not call.captured
     torch.cuda.synchronize()
     assert torch.isfinite(g.x.sum() + 1)        # the device still works
+
+
+# ---------------------------------------------------------------------------
+# The stacked epoch: K steps in one captured graph (Trainer.run_steps)
+# ---------------------------------------------------------------------------
+
+def _count_replays(run):
+    """``(run(), the CUDA graph replays it made)``."""
+    n = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        n[0] += 1
+        return replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        return run(), n[0]
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+
+
+def _k_step_against_one_step(make_trainer, batches):
+    """A K-step trainer runs the stack twice (eager and captured, then one
+    replay), a one-step trainer the same 2K steps one batch a call; both
+    from one init.  Returns their losses, weights, the K-step replay's
+    graph replays and launches, and the one-step replays' launches."""
+    from gnn_fpga_tpu_torch.train.trainer import stack_batches
+
+    stacked, one = make_trainer(), make_trainer()
+    stack = stack_batches(batches)
+    first = stacked.run_steps(stack)
+    tsp.reset_launch_counts()
+    second, replays = _count_replays(lambda: stacked.run_steps(stack))
+    k_launches = tsp.launch_counts()
+    ones = [one.run_steps([batches[0]])]
+    tsp.reset_launch_counts()
+    ones += [one.run_steps([b]) for b in (batches + batches)[1:]]
+    one_launches = tsp.launch_counts()
+    params = lambda tr: torch.cat([p.detach().reshape(-1)
+                                   for p in tr.model.parameters()])
+    return dict(got=np.concatenate([first, second]),
+                want=np.concatenate(ones), got_w=params(stacked),
+                want_w=params(one), replays=replays, k_launches=k_launches,
+                one_launches=one_launches, k=len(batches))
+
+
+def _assert_k_step_matches(r):
+    np.testing.assert_array_equal(r["got"], r["want"])
+    assert torch.equal(r["got_w"], r["want_w"])
+    assert r["replays"] == 1
+    # the one-step trainer's 2K - 1 replays against the K steps of one
+    per_step = {k: n / (2 * r["k"] - 1) for k, n in r["one_launches"].items()}
+    assert any(per_step.values())
+    assert r["k_launches"] == {k: n * r["k"] for k, n in per_step.items()}
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_k_step_graph_equals_one_step_graphs_bit_for_bit(dev, fused,
+                                                         schedule):
+    """``run_steps`` on a stack of 5 composed batches is one replay of a
+    5-step graph that launches 5 steps' kernels, and its losses and
+    weights equal 10 one-step calls' from the same init bit for bit,
+    under a constant and a cosine rate (the rate computed on the device
+    inside both graphs)."""
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batches = _composed_batches(dev, 5, seed=7)
+    base = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas",
+                                   fused_iteration=fused,
+                                   compute_dtype=torch.bfloat16),
+        torch.Generator().manual_seed(3), device=dev)
+    kw = dict(lr_schedule="cosine", decay_steps=7) \
+        if schedule == "cosine" else {}
+    cfg = TrainConfig(learning_rate=3e-3, pos_weight=8.0, l1=1e-4, **kw)
+
+    def make():
+        model = tm.SegmentClassifier(base.cfg, torch.Generator(), device=dev)
+        model.load_state_dict(base.state_dict())
+        return Trainer(model, cfg)
+
+    _assert_k_step_matches(_k_step_against_one_step(make, batches))
+
+
+def test_k_step_capture_memory_does_not_grow_with_k(dev):
+    """The first call of a 16-step graph (its eager run and capture)
+    allocates at most twice the one-step graph's memory beyond its input
+    buffers: the capture's pool reuses each step's blocks."""
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
+
+    batches = _composed_batches(dev, 4, seed=8)
+    base = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas"),
+        torch.Generator().manual_seed(4), device=dev)
+    extra = {}
+    for k in (1, 16):
+        model = tm.SegmentClassifier(base.cfg, torch.Generator(), device=dev)
+        model.load_state_dict(base.state_dict())
+        tr = Trainer(model, TrainConfig())
+        stack = stack_batches([batches[i % 4] for i in range(k)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        tr.run_steps(stack)
+        torch.cuda.synchronize()
+        extra[k] = (torch.cuda.max_memory_allocated() - before
+                    - sum(t.numel() * t.element_size()
+                          for t in stack.tensors()))
+    assert 0 < extra[16] <= 2 * extra[1], extra
+
+
+def test_a_failing_k_step_capture_raises(dev):
+    """A K-step body that reads a value back to the host cannot be
+    captured: ``run_steps`` raises after its eager run, and raises again
+    on the next call rather than stepping eagerly."""
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
+
+    batches = _composed_batches(dev, 2, seed=9)
+    tr = Trainer(tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas"),
+        torch.Generator().manual_seed(5), device=dev), TrainConfig())
+    tr._step_body = lambda g: g.x.sum() * float(g.x.sum())
+    stack = stack_batches(batches)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            tr.run_steps(stack)
+    assert not any(call.captured for call in tr._captured.values())
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -1345,7 +1483,10 @@ def test_partitioned_captured_steps_match_eager(dev, world_of_one, fused):
         tr = Trainer(model, cfg, strategy="partitioned", mesh=mesh,
                      capture=capture)
         tsp.reset_launch_counts()
-        runs[capture] = (tr.run_steps(batches), tsp.launch_counts(),
+        # one step a call: the first eager and captured, then replays
+        runs[capture] = (np.concatenate([tr.run_steps([b])
+                                         for b in batches]),
+                         tsp.launch_counts(),
                          [p.detach().clone() for p in model.parameters()],
                          tr._eval_loss(batches[0]))
         if capture:
@@ -1373,6 +1514,50 @@ def test_partitioned_captured_steps_match_eager(dev, world_of_one, fused):
             cpu_model, batches[0].shard(0).to("cpu"),
             Comm(dist.new_group(backend="gloo")))
     torch.testing.assert_close(card.cpu(), plain, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("world_of_one", ["nccl"], indirect=True)
+@pytest.mark.parametrize("strategy", ["partitioned", "dp"])
+def test_parallel_k_step_graph_equals_one_step_graphs(dev, world_of_one,
+                                                      strategy):
+    """At P = 1 over NCCL, a stack of 5 partitioned graphs (the shard
+    axis 1 taken) or of 5 batched graphs (dp, the batch axis 1 split) runs
+    as one replay of a 5-step graph holding each step's collectives,
+    equal bit for bit to 10 one-step calls, cosine rate and all."""
+    from gnn_fpga_tpu_torch.data import toy2d
+    from gnn_fpga_tpu_torch.parallel import mesh as mesh_lib
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    axis = mesh_lib.GRAPH_AXIS if strategy == "partitioned" \
+        else mesh_lib.DATA_AXIS
+    mesh = mesh_lib.make_mesh(axis_names=(axis,))
+    if strategy == "partitioned":
+        batches, kw = _partitioned_batches(dev, 5), {}
+    else:
+        batches = [toy2d.make_segment_graphs(toy2d.Toy2DConfig(
+            n_layers=6, n_tracks=4, seed=s), 4).to(dev) for s in range(5)]
+        # the dense route: the sparse route's atomic index_add_ sums in
+        # no fixed order on the card
+        kw = dict(aggregation="dense")
+    base = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   **kw),
+        torch.Generator().manual_seed(6), device=dev)
+    cfg = TrainConfig(learning_rate=3e-3, pos_weight=8.0, l1=1e-4,
+                      lr_schedule="cosine", decay_steps=7)
+
+    def make():
+        model = tm.SegmentClassifier(base.cfg, torch.Generator(), device=dev)
+        model.load_state_dict(base.state_dict())
+        return Trainer(model, cfg, strategy=strategy, mesh=mesh)
+
+    r = _k_step_against_one_step(make, batches)
+    if strategy == "partitioned":
+        _assert_k_step_matches(r)
+    else:                               # the dense route: no hand kernel
+        np.testing.assert_array_equal(r["got"], r["want"])
+        assert torch.equal(r["got_w"], r["want_w"])
+        assert r["replays"] == 1
 
 
 @pytest.mark.parametrize("world_of_one", ["gloo"], indirect=True)

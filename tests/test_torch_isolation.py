@@ -31,6 +31,7 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch.ops.cuda import doublets as dop\n"
         "from gnn_fpga_tpu_torch.models import mpnn, gcn, baselines\n"
         "from gnn_fpga_tpu_torch.utils import serialization, profiling\n"
+        "from gnn_fpga_tpu_torch.utils import flops\n"
         "from gnn_fpga_tpu_torch.utils import plotting\n"
         "from gnn_fpga_tpu_torch.cli import train, infer, plot_graph\n"
         "from gnn_fpga_tpu_torch.cli import prepare_graphs, prepare_muon_graphs\n"

@@ -15,6 +15,10 @@ fixture) runs every case on every rank; the tests compare:
   gradients are summed once, not scaled by the number of ranks;
 - five Trainer steps per strategy against the JAX Trainer's at rtol 1e-5,
   with the losses and the final weights identical on every rank;
+- five stacked steps per strategy (``run_steps(stack_batches(...))``, the
+  stack split along axis 1) against the JAX scan at rtol 1e-5, under a
+  constant and a cosine rate with masks, equal bit for bit to the same
+  steps one call a batch;
 - bf16 finite; fit, checkpoints written by rank 0 and read by every rank;
 - the train CLI with ``--strategy partitioned`` and ``dp`` in the 2-rank
   world against the JAX CLI at rtol 1e-4;
@@ -177,7 +181,7 @@ def results(tmp_path_factory, cli_dir):
     for world in WORLDS:
         d = tmp_path_factory.mktemp(f"world{world}")
         inputs["trainer"] = dict(
-            cfg=TRAIN_CFG, directory=str(d),
+            cfg=TRAIN_CFG, directory=str(d), scan=_scan_inputs(),
             graphs=[_arrays(g) for g in _trainer_graphs()],
             dp_batches=[_arrays(_dp_batch(s)) for s in range(5)])
         inputs["cli"] = None if world != 2 else dict(
@@ -188,6 +192,24 @@ def results(tmp_path_factory, cli_dir):
         out[world] = ranks.run_world(world, inputs, d)
         out["dir", world] = d
     return out
+
+
+# name -> strategy, schedule, masks: the stacked steps' cases
+SCAN = {
+    "partitioned-constant": ("partitioned", "constant", False),
+    "partitioned-cosine-masks": ("partitioned", "cosine", True),
+    "dp-constant": ("dp", "constant", False),
+    "dp-cosine-masks": ("dp", "cosine", True),
+}
+SCHEDULES = {"constant": {},
+             "cosine": dict(lr_schedule="cosine", decay_steps=3,
+                            lr_min_fraction=0.1)}
+
+
+def _scan_inputs() -> dict:
+    return {k: dict(strategy=st, masks=mk,
+                    cfg=dict(TRAIN_CFG, **SCHEDULES[sched]))
+            for k, (st, sched, mk) in SCAN.items()}
 
 
 def _trainer_graphs():
@@ -336,6 +358,49 @@ def test_trainer_steps_match_jax_trainer(results, world, strategy):
     for o in outs[1:]:
         np.testing.assert_array_equal(o["losses"], outs[0]["losses"])
         np.testing.assert_array_equal(o["params"], outs[0]["params"])
+    np.testing.assert_allclose(outs[0]["losses"], want, **STEP_TOL)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", list(SCAN))
+def test_stacked_steps_match_jax_scan(results, world, name):
+    """``run_steps(stack_batches(...))`` under dp (the stack's batch axis
+    1 split over the ranks) and partitioned (its shard axis 1) against the
+    JAX ``run_steps`` scan over the same stack (``test_dp_run_steps_scan``
+    and the partitioned scan, ``P(None, DATA)`` / ``P(None, GRAPH)``), with
+    the cosine rate and masks: losses at rtol 1e-5, identical on every
+    rank and equal bit for bit to the same steps one call a batch; pruned
+    weights stay 0."""
+    strategy, sched, with_masks = SCAN[name]
+    cfg = jtrainer.TrainConfig(**TRAIN_CFG, **SCHEDULES[sched])
+    params = _params()["edge"]
+    masks = (jpruning.magnitude_masks(params, MASK_THRESHOLD)
+             if with_masks else None)
+    if strategy == "partitioned":
+        t = jtrainer.Trainer(None, params, cfg, masks=masks,
+                             strategy="partitioned", mesh=_mesh(world),
+                             model_cfg=_jcfg("edge"))
+        stacked = jtrainer.stack_batches(
+            [jax.tree.map(jnp.asarray, jpart.partition_graph(g, world))
+             for g in _trainer_graphs()])
+    else:
+        mcfg = _jcfg("edge")
+        fn = lambda p, g, m: jm.segment_classifier_logits(p, g, mcfg, m)
+        t = jtrainer.Trainer(fn, params, cfg, masks=masks, strategy="dp",
+                             mesh=jmesh.make_mesh())
+        stacked = jtrainer.stack_batches([_dp_batch(s) for s in range(5)])
+    want = t.run_steps(stacked)
+    outs = [r["trainer"]["scan"][name] for r in results[world]]
+    for o in outs:
+        np.testing.assert_array_equal(o["losses"], outs[0]["losses"])
+        np.testing.assert_array_equal(o["params"], outs[0]["params"])
+        np.testing.assert_array_equal(o["one_step_losses"], o["losses"])
+        np.testing.assert_array_equal(o["one_step_params"], o["params"])
+        if sched == "cosine":
+            assert o["last_epoch"] == (5, 5.0)
+        if with_masks:
+            assert o["pruned"] and not any(o["pruned"])
+    assert outs[0]["losses"].shape == (5,)
     np.testing.assert_allclose(outs[0]["losses"], want, **STEP_TOL)
 
 

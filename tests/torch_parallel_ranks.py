@@ -216,6 +216,10 @@ def _trainer_cases(inputs, graphs, gmesh, dmesh, world) -> dict:
         losses = t.run_steps(steps)
         res[name] = dict(losses=losses, params=_params(m).numpy())
 
+    res["scan"] = _scan_cases(inputs, batches, [graph(b) for b in
+                                                tc["dp_batches"]],
+                              gmesh, dmesh)
+
     # bf16 on the fused body: finite logits and losses
     m = model("edge", inputs["params"]["edge"], dims, "fused", bf16=True)
     t = Trainer(m, cfg, strategy="partitioned", mesh=gmesh)
@@ -242,6 +246,43 @@ def _trainer_cases(inputs, graphs, gmesh, dmesh, world) -> dict:
         loaded=loaded, epoch=resumed.epoch,
         same_params=bool(torch.equal(_params(resumed.model), _params(m))),
         metrics=t.evaluate(iter(batches), 2))
+    return res
+
+
+def _scan_cases(inputs, pgs, dp_batches, gmesh, dmesh) -> dict:
+    """Each strategy's stacked steps (``run_steps`` on ``stack_batches``,
+    each rank its part of axis 1 of the stack) under each of
+    ``tc["scan"]``'s train configs, with the JAX masks where it asks for
+    them; beside them the same steps one call a batch (``fit``, one step
+    a call), which must give the same losses and weights bit for bit."""
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
+
+    dims = inputs["dims"]
+    res = {}
+    for name, case in inputs["trainer"]["scan"].items():
+        kw = (dict(strategy="partitioned", mesh=gmesh)
+              if case["strategy"] == "partitioned"
+              else dict(strategy="dp", mesh=dmesh))
+        steps = pgs if case["strategy"] == "partitioned" else dp_batches
+        masks = _masks(inputs, case)
+        cfg = TrainConfig(**case["cfg"])
+        m = model("edge", inputs["params"]["edge"], dims)
+        t = Trainer(m, cfg, masks=masks, **kw)
+        losses = t.run_steps(stack_batches(steps))
+        one = model("edge", inputs["params"]["edge"], dims)
+        t1 = Trainer(one, cfg, masks=masks, **kw)
+        t1.fit(iter(steps), n_batches=1, n_epochs=len(steps))
+        res[name] = dict(
+            losses=losses, params=_params(m).numpy(),
+            one_step_losses=np.array(t1.train_losses, np.float32),
+            one_step_params=_params(one).numpy(),
+            last_epoch=None if t.scheduler is None
+            else (t.scheduler.last_epoch, float(t.scheduler.count)),
+            pruned=None if masks is None else [
+                float(getattr(getattr(m, mod), k).weight[mk == 0].abs()
+                      .sum()) for mod, layer in masks.items()
+                for k, mk in layer.items() if mk is not None])
     return res
 
 
