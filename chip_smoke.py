@@ -29,6 +29,14 @@ it:
    alone, aggregate_pair with its weights read in sorted order beside the
    sorted copy's cost, the kernels at D = 64, the segment sum on a
    1,120-row hub, on a view off 16-byte alignment and with other tiles);
+   then the probes' kernels (``ops/cuda/probes.py``, never on the main
+   path): the copy and gather kernels bit for bit with their rates in
+   GB/s, square matmuls in TFLOP/s beside the card's peaks, the SpMM
+   ablation's six modes (``full`` bit for bit against ``spmm_raw``,
+   ``aligned`` against ``full``), and the production iteration backward
+   from the forward's scores against its variant that forms them, at the
+   TPU probes' shapes and on the fullevent graph, each against its plain
+   version, timed, with its bound;
 4. serving: 8 distinct packed graphs answered by the fused route, with
    kernel launch counts, one request on the unfused route, and
    probabilities checked against the port's plain ``sparse`` route;
@@ -136,7 +144,7 @@ exits non-zero.  ``--profile PATH`` also writes torch.profiler tables of
 three fused requests, three fused training steps, one blocked training
 step, three NodeClassifier training steps, one 32-step replay of the
 stacked step and three replayed partitioned (P = 1) and single-device
-steps to PATH.  ``--phase NAME`` (kernels, iteration, rows or stream, on
+steps to PATH.  ``--phase NAME`` (kernels, iteration, rows, stream or probes, on
 the first packed graph, prepare, parallel or scan; repeatable) runs only
 those phases and prints no result line:
 copied into an older checkout, it measures that tree's kernels the same
@@ -180,7 +188,8 @@ SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
            "segsum": "gnn_fpga_tpu_torch/csrc/segment_sum.cu",
            "iter_fwd": "gnn_fpga_tpu_torch/csrc/iteration_fwd.cu",
            "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu",
-           "doublets": "gnn_fpga_tpu_torch/csrc/doublets.cu"}
+           "doublets": "gnn_fpga_tpu_torch/csrc/doublets.cu",
+           "probes": "gnn_fpga_tpu_torch/csrc/probes.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
 KERNELS = {
     "iteration_pair": ("iter_fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
@@ -197,7 +206,16 @@ KERNELS = {
                            "gnn_fpga_tpu/ops/pallas/segment_sum.py:82"),
     # the repo's one native (C++) kernel, not a Pallas kernel
     "select_segments": ("doublets", "native/doublets.cpp:37"),
+    # the probes' kernels (ops/cuda/probes.py): instruments, never on the
+    # main path
+    "passthrough": ("probes", "benchmarks/probe_bw.py:49"),
+    "gather_rows": ("probes", "benchmarks/probe_ops.py:144"),
+    "ablate_rows": ("probes", "benchmarks/probe_spmm_ablate.py:25"),
+    "iteration_pair_bwd_recompute": ("iter_bwd",
+                                     "benchmarks/probe_iter.py:34"),
 }
+# A kernel that stands for a second TPU kernel too.
+ALSO_REPLACES = {"passthrough": "benchmarks/probe_ops.py:123"}
 # Kernel outputs that are f32 from T-typed tables ([E] edge values): they
 # take the f32 tolerance whatever T is.
 F32_OUT_SIDES = ("dw", "e")
@@ -327,6 +345,15 @@ def fail(msg: str):
 def expected_counts(**launched) -> dict:
     """Launch counts of every kernel wrapper: ``launched``, else 0."""
     return {name: launched.get(name, 0) for name in KERNELS}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset, by ``KERNELS`` name
+    (``spmm.launch_counts``; 0 for a wrapper whose module this process
+    has not imported: the probes' register themselves on import)."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    return expected_counts(**spmm.launch_counts())
 
 
 def fused_step_counts(steps: int = 1) -> dict:
@@ -750,28 +777,301 @@ def phase_kernels(g) -> dict:
     return out
 
 
-def print_probe_bounds():
-    """The bounds of the TPU-era probe kernels under benchmarks/, not
-    ported: the bytes one call moves at the probe's default shapes (inputs
-    read once, outputs written once) over the card's memory rate."""
-    v, e, d = 16_384, 131_072, 128
-    probes = {
-        # pa, pb, h, g_mi, g_mo in; dh, dpa, dpb out (H = D, f32); em,
-        # sig, two ids an edge; w2, b1
-        "probe_iter.py _stash_bwd": 4 * (8 * v * d + 4 * e + 2 * d),
-        # bf16 h in; three f32 or int32 values an edge; the f32 rank table
-        # out (V + 1 rows rounded up to 8, plus a tile of 256)
-        "probe_spmm_ablate.py k_full ... k_onehot":
-            2 * v * d + 12 * e + 4 * ((v + 8) // 8 * 8 + 256) * d,
-        "probe_ops.py passthrough": 2 * e * d * 4,
-        # ids and the f32 table in, one row an id out
-        "probe_ops.py gather_kernel_builder": 4 * (e + v * d + e * d),
-        "probe_bw.py passthrough": 2 * e * d * 4,
-    }
-    rate = card_peaks().hbm_gbps * 1e9
-    for name, nbytes in probes.items():
-        print(f"  probe {name}: {nbytes} bytes, bound "
-              f"{nbytes / rate * 1e3:.4f} ms (bytes)", flush=True)
+def phase_probes(g_full) -> dict:
+    """The probes' kernels (``ops/cuda/probes.py``): each against its plain
+    version on the card, launches counted, two launches bit for bit, and
+    timed beside its plain version, one PyTorch call where one computes
+    the same function, and its bound (``utils/flops.py::kernel_work``):
+
+    - ``passthrough`` (f32 and bf16, 1, 2 and 4 vectors a thread) and
+      ``gather_rows`` (f32 and bf16) at the TPU probes' shapes, bit for
+      bit against ``x * 2`` and ``index_select``, with the copy and
+      gather rates in GB/s; square matmuls (f32 with TF32 off, bf16) in
+      TFLOP/s beside the card's peaks;
+    - ``ablate_rows``'s six modes on the layered graph in the probe's
+      cases (``probes/spmm_ablate.py``: bf16 at D = 128, the TPU probe's
+      constants; bf16 and f32 at D = 66) and on the fullevent graph's
+      recv plan (D = 66, f32 and bf16): ``full`` bit for bit against ``spmm_raw``
+      and ``aligned`` against ``full``, every mode against its plain
+      version at KERNEL_TOL (the group sums' atol as PARAM_SUM_ATOL's);
+    - the production iteration backward from the forward's scores
+      against ``iteration_pair_bwd_recompute`` at the TPU probe's two
+      shapes and the fullevent graph, f32 and bf16: the variant against
+      its plain version and against the production kernel, the
+      production kernel against the stashed-score plain version, all at
+      KERNEL_TOL and PARAM_SUM_ATOL; timed in turns (stashed, recompute,
+      recompute, stashed) with the share the stash saves.
+
+    Returns the JSON line's row of each kernel (passthrough and
+    gather_rows in f32 at the probe shape; ablate_rows' full and the
+    recompute variant in bf16 on the fullevent graph)."""
+    import numpy as np
+
+    from gnn_fpga_tpu_torch.ops.cuda import probes, spmm
+    from gnn_fpga_tpu_torch.probes import bw, spmm_ablate
+    from gnn_fpga_tpu_torch.probes import iter as iter_probe
+    from gnn_fpga_tpu_torch.probes.common import layered_graph
+
+    t_phase = time.perf_counter()
+    dev = g_full.x.device
+    peaks = card_peaks()
+    # the TPU probes' shapes, as the port's probes take them
+    v, e, d = spmm_ablate.V, spmm_ablate.E, spmm_ablate.D
+    print(f"probes: the probes' kernels at the TPU probes' shapes (V={v}, "
+          f"E={e}, D={d}) and on the fullevent graph, on {card()}",
+          flush=True)
+    rows = {}
+
+    def launched_twice(name, what, kern, counter):
+        """Two launches of ``kern``: counted, and equal bit for bit."""
+        n0 = counter.launches
+        first, again = kern(), kern()
+        torch.cuda.synchronize()
+        if counter.launches != n0 + 2:
+            fail(f"{name} {what}: {counter.launches - n0} launches counted "
+                 f"for 2 calls")
+        pairs = zip(first, again) if isinstance(first, tuple) else \
+            ((first, again),)
+        if not all(torch.equal(a, b) for a, b in pairs):
+            fail(f"{name} {what}: two launches differ")
+        return first
+
+    def measure(name, what, kern, plain, bound_key, dt, shape, lib=None):
+        """Kernel and plain device ms (plain, kernel, kernel, plain), the
+        library call's and the bound's."""
+        p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+        ms, plain_ms = device_ms(k1, k2), device_ms(p1, p2)
+        lib_ms, lib_timer = library_ms(lib) if lib else (None, None)
+        bound, by = bound_ms(bound_key, dt, *shape)
+        print(f"  {name} {what}: kernel {ms:.4f} ms ({fmt_ms(k1)}, "
+              f"{fmt_ms(k2)}), plain {plain_ms:.4f} ms, one PyTorch call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by}): {bound / ms:.1%} of the bound",
+              flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms, timer="cuda_graph",
+                    library_timer=lib_timer, dtype=str(dt).replace(
+                        "torch.", ""), shape=what)
+
+    # the copy and the gather, at the TPU probes' shapes
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h32 = f32(rng.standard_normal((v, d)))
+    m32 = f32(rng.standard_normal((e, d)))
+    ridx = torch.from_numpy(rng.permutation(
+        np.sort(rng.integers(0, v, size=e))).astype(np.int32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        x, h = m32.to(dt), h32.to(dt)
+        for vec in probes.PASSTHROUGH_VECTORS:
+            what = f"{tag} [{e}, {d}], {vec} vectors a thread"
+            got = launched_twice("passthrough", what,
+                                 lambda: probes.passthrough(x, vec),
+                                 probes.passthrough)
+            err = exact(f"passthrough {what}", got,
+                        probes.passthrough_reference(x))
+            row = measure("passthrough", what,
+                          lambda: probes.passthrough(x, vec),
+                          lambda: probes.passthrough_reference(x),
+                          "passthrough", dt, (v, e, d, d),
+                          lib=lambda: x * 2)
+            print(f"  passthrough {what}: copy rate "
+                  f"{2 * e * d * dt.itemsize / row['ms'] / 1e6:.1f} GB/s "
+                  f"of {peaks.hbm_gbps:g} GB/s (data sheet)", flush=True)
+            if dt == torch.float32 and vec == 4:
+                rows["passthrough"] = dict(max_abs_err=err, **row)
+        what = f"{tag} [{v}, {d}] table, {e} random ids"
+        got = launched_twice("gather_rows", what,
+                             lambda: probes.gather_rows(h, ridx),
+                             probes.gather_rows)
+        err = exact(f"gather_rows {what}", got,
+                    probes.gather_rows_reference(h, ridx))
+        row = measure("gather_rows", what,
+                      lambda: probes.gather_rows(h, ridx),
+                      lambda: probes.gather_rows_reference(h, ridx),
+                      "gather_rows", dt, (v, e, d, d),
+                      lib=lambda: h.index_select(0, ridx))
+        b = dt.itemsize
+        print(f"  gather_rows {what}: {(v + e) * d * b / row['ms'] / 1e6:.1f}"
+              f" GB/s by the TPU probe's count (V + E) D b, "
+              f"{(e * d * b + 4 * e) / row['ms'] / 1e6:.1f} GB/s of rows "
+              f"written and ids read (the {v * d * b / 1e6:.1f} MB table "
+              f"stays in the 50 MB L2)", flush=True)
+        if dt == torch.float32:
+            rows["gather_rows"] = dict(max_abs_err=err, **row)
+    for n in bw.MATMUL_SIZES:
+        a, bm = f32(rng.standard_normal((n, n))), f32(
+            rng.standard_normal((n, n)))
+        for dt, peak in ((torch.float32, peaks.f32_tflops),
+                         (torch.bfloat16, peaks.bf16_tflops)):
+            aa, bb = a.to(dt), bm.to(dt)
+            ms = device_ms(time_ms(lambda: aa @ bb))
+            tflops = 2 * n ** 3 / ms / 1e9
+            print(f"  matmul {str(dt).replace('torch.', '')} {n}x{n}"
+                  f"{' (TF32 off)' if dt == torch.float32 else ''}: "
+                  f"{ms:.4f} ms, {tflops:.2f} TFLOP/s of {peak:g} "
+                  f"({tflops / peak:.1%} of the data sheet's peak)",
+                  flush=True)
+
+    # the SpMM ablation: the probe's cases (the TPU probe's constants, then
+    # D = 66 in bf16 and f32) on its layered graph, with its inputs; then
+    # the fullevent graph's recv plan
+    s, r = layered_graph(v, e)
+    layered = spmm.build_edge_plan(r, s, v).to(dev)
+    cases = []
+    for width, dt in spmm_ablate.CASES:
+        rng = np.random.default_rng(0)
+        h_probe = f32(rng.standard_normal((v, width))).to(dt)
+        cases.append(("probe", layered, h_probe,
+                      f32(rng.standard_normal((e,)))))
+    gen = torch.Generator().manual_seed(77)
+    w_full = torch.rand(N_EDGE, generator=gen).to(dev) * g_full.edge_mask
+    h_full = torch.randn(N_NODE, HIDDEN + INPUT_DIM, generator=gen).to(dev)
+    cases += [("fullevent", g_full.plans.recv, h_full.to(dt), w_full)
+              for dt in (torch.float32, torch.bfloat16)]
+    for label, plan, h, w in cases:
+        dt = h.dtype
+        n_node, width = h.shape
+        what = (f"{str(dt).replace('torch.', '')} {label} (V={n_node}, "
+                f"E={plan.n_edge}, D={width})")
+        padded = probes.pad_rows(h)
+        runs = {m: (lambda m=m: probes.ablate_rows(h, w, plan, m))
+                for m in probes.ABLATION_MODES if m != "aligned"}
+        runs["aligned"] = lambda: probes.ablate_rows(padded, w, plan,
+                                                     "aligned", width=width)
+        got = {m: launched_twice("ablate_rows", f"{m} {what}", run,
+                                 probes.ablate_rows)
+               for m, run in runs.items()}
+        exact(f"ablate_rows full vs spmm_raw {what}", got["full"],
+              spmm.spmm_raw(h, w, plan))
+        exact(f"ablate_rows aligned vs full {what}", got["aligned"],
+              got["full"])
+        times = {}
+        for mode, run in runs.items():
+            plain = (lambda m=mode: probes.ablate_rows_reference(
+                h, w, plan, "full" if m == "aligned" else m))
+            ref = plain()
+            kdt = torch.float32 if mode == "ids_only" else dt
+            rtol, atol = KERNEL_TOL[kdt]
+            if mode in ("no_scatter", "compute", "ids_only"):
+                atol = PARAM_SUM_ATOL[kdt] * ref.abs().max().item()
+            err = compare(f"ablate_rows {mode} {what}", got[mode], ref, rtol,
+                          atol)
+            lib = None
+            if mode == "full":
+                csr = torch.sparse_csr_tensor(
+                    plan.seg_ptr.long(), plan.sorted_oth.long(),
+                    spmm.sort_edge_weights(w, plan).to(dt),
+                    size=(n_node, n_node), device=dev)
+                lib = lambda csr=csr: torch.sparse.mm(csr, h)
+            row = measure(f"ablate_rows {mode}", what, run, plain,
+                          f"ablate_{mode}", dt,
+                          (n_node, plan.n_edge, width, width), lib=lib)
+            times[mode] = row["ms"]
+            if mode == "full" and label == "fullevent" and \
+                    dt == torch.bfloat16:
+                rows["ablate_rows"] = dict(max_abs_err=err, **row)
+        print(f"  ablate_rows {what}: full {times['full']:.4f} ms; without "
+              f"the gather {times['no_gather']:.4f}, without the scatter "
+              f"{times['no_scatter']:.4f}, neither {times['compute']:.4f}, "
+              f"ids alone {times['ids_only']:.4f}, 16-byte pitch "
+              f"{times['aligned']:.4f}", flush=True)
+
+    # the iteration backward: stashed scores (production) against the
+    # recompute variant
+    shapes = []
+    for n_node, n_edge, dd, hd in iter_probe.SHAPES["probe"]:
+        rng = np.random.default_rng(0)
+        s, r = layered_graph(n_node, n_edge)
+        tabs = {k: f32(rng.standard_normal(shape)) for k, shape in (
+            ("h", (n_node, dd)), ("pa", (n_node, hd)), ("pb", (n_node, hd)),
+            ("w2", (hd,)), ("b1", (hd,)), ("b2", (1,)))}
+        rng = np.random.default_rng(1)
+        tabs.update(g_mi=f32(rng.standard_normal((n_node, dd))),
+                    g_mo=f32(rng.standard_normal((n_node, dd))))
+        plans = spmm.build_agg_plans(s, r, n_node).to(dev)
+        shapes.append((f"probe (V={n_node}, E={n_edge}, D={dd}, H={hd})",
+                       plans, torch.ones(n_edge, device=dev), tabs))
+    gen = torch.Generator().manual_seed(1234)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    dd = HIDDEN + INPUT_DIM
+    shapes.append((f"fullevent (V={N_NODE}, E={N_EDGE}, D={dd}, H={HIDDEN})",
+                   g_full.plans, g_full.edge_mask, dict(
+                       pa=rnd(N_NODE, HIDDEN), pb=rnd(N_NODE, HIDDEN),
+                       h=rnd(N_NODE, dd), w2=rnd(HIDDEN) * 0.25,
+                       b1=rnd(HIDDEN), b2=rnd(1), g_mi=rnd(N_NODE, dd),
+                       g_mo=rnd(N_NODE, dd))))
+    sides = ("dh", "dpa", "dpb", "dw2", "db1", "db2")
+    for label, plans, em, tabs32 in shapes:
+        # On the TPU probe's inputs (w2 ~ N(0, 1) over H = 128: logits of
+        # ~10, scores within 2^-14 of 1) 1 - sig keeps only the bits of a
+        # score rounded to f32, so each edge's dlogit errs by up to |de
+        # em| 2^-24 whatever its size (the kernels' and the plain
+        # version's scores round differently), and a node's rows of dh,
+        # dpa and dpb err in proportion to its edges' terms, not to the
+        # result: the tables there take PARAM_SUM_ATOL's atol, as the
+        # parameter sums do everywhere.
+        saturated = label.startswith("probe")
+        recv = plans.recv
+        ems = spmm.sort_edge_weights(em, recv)
+        for dt in (torch.float32, torch.bfloat16):
+            t = {k: x.to(dt) for k, x in tabs32.items()}
+            what = f"{str(dt).replace('torch.', '')} {label}"
+            ip = (t["pa"], t["pb"], t["h"], ems, t["w2"], t["b1"], t["b2"])
+            grads = (t["g_mi"], t["g_mo"])
+            ids = (recv.sorted_oth, recv.sorted_seg, recv.n_node)
+            sig = spmm.iteration_pair_fwd(*ip, plans)[2]
+            stashed = lambda: spmm.iteration_pair_bwd(*ip, *grads, plans,
+                                                      sig)
+            recompute = lambda: probes.iteration_pair_bwd_recompute(
+                *ip, *grads, plans)
+            got = launched_twice("iteration_pair_bwd_recompute", what,
+                                 recompute,
+                                 probes.iteration_pair_bwd_recompute)
+            prod = stashed()
+            plain = lambda: spmm.iteration_pair_bwd_reference(*ip, *grads,
+                                                              *ids)
+            stash_plain = spmm.iteration_pair_bwd_stashed_reference(
+                *ip[:6], sig, *grads, *ids)
+            err, gap = 0.0, 0.0
+            for side, a, b, p, q in zip(sides, got, plain(), prod,
+                                        stash_plain):
+                rtol, atol = KERNEL_TOL[dt]
+                if side in ("dw2", "db1", "db2") or saturated:
+                    atol = PARAM_SUM_ATOL[dt] * b.abs().max().item()
+                err = max(err, compare(
+                    f"iteration_pair_bwd_recompute {what} {side}", a, b,
+                    rtol, atol))
+                gap = max(gap, compare(
+                    f"recompute vs stashed (production) {what} {side}", a,
+                    p, rtol, atol))
+                compare(f"stashed (production) vs its plain version {what} "
+                        f"{side}", p, q, rtol, atol)
+            print(f"  iteration_pair_bwd {what}: largest gap between the "
+                  f"recompute variant and the stashed scores {gap:.3e}",
+                  flush=True)
+            shape = (recv.n_node, recv.n_edge, t["h"].shape[1],
+                     t["pa"].shape[1])
+            ts1, tr1, tr2, ts2 = (time_ms(f) for f in (stashed, recompute,
+                                                       recompute, stashed))
+            ts, tr = device_ms(ts1, ts2), device_ms(tr1, tr2)
+            bs, _ = bound_ms("iteration_pair_bwd_stashed", dt, *shape)
+            br, by = bound_ms("iteration_pair_bwd_recompute", dt, *shape)
+            print(f"  iteration_pair_bwd {what}: stashed scores {ts:.4f} ms "
+                  f"({fmt_ms(ts1)}, {fmt_ms(ts2)}; bound {bs:.4f}), "
+                  f"recompute {tr:.4f} ms ({fmt_ms(tr1)}, {fmt_ms(tr2)}; "
+                  f"bound {br:.4f}, {br / tr:.1%} of it): "
+                  f"{(tr - ts) / tr:+.1%} saved by the stash", flush=True)
+            if label.startswith("fullevent") and dt == torch.bfloat16:
+                p1, p2 = time_ms(plain), time_ms(plain)
+                rows["iteration_pair_bwd_recompute"] = dict(
+                    max_abs_err=err, ms=tr, plain_ms=device_ms(p1, p2),
+                    bound_ms=br, bound_by=by, library_ms=None,
+                    timer="cuda_graph", library_timer=None, dtype="bfloat16",
+                    shape=what, stashed_ms=ts)
+    print(f"probes: phase done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows
 
 
 def without_pad_edges(g):
@@ -1180,7 +1480,7 @@ def phase_serving(device, graphs, profile_path=None) -> dict:
         # each copied into its captured forward's buffers and replayed
         served = [serve_captured(fused_call, g) for g in graphs]
         unfused_probs, unfused_ms = serve_captured(unfused_call, graphs[0])
-        launches = spmm.launch_counts()
+        launches = launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
         expect = expected_counts(iteration_pair=N_REQUESTS * N_ITERS,
@@ -1308,14 +1608,14 @@ def phase_training(device, graphs, profile_path=None) -> dict:
         t = time.perf_counter()
         losses.append(float(trainer.run_steps([graphs[i % N_REQUESTS]])[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
-    fused_counts = spmm.launch_counts()
+    fused_counts = launch_counts()
     unfused_losses, unfused_ms = [], []
     for i in range(N_UNFUSED_STEPS):
         t = time.perf_counter()
         unfused_losses.append(
             float(unfused.run_steps([graphs[i % N_REQUESTS]])[0]))
         unfused_ms.append((time.perf_counter() - t) * 1e3)
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     # --- checks (not counted)
     unfused_counts = {k: (launches[k] - fused_counts[k]) / N_UNFUSED_STEPS
                       for k in launches}
@@ -1396,7 +1696,7 @@ def phase_ops(g) -> dict:
     agg = segment_sum.sorted_segment_sum(mq, seg, N_NODE)
     agg.backward(g_mi)
     torch.cuda.synchronize()
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     # --- checks (not counted)
     print(f"  launches: {launches}", flush=True)
     expect = expected_counts(spmm=2, sddmm=2, sddmm_dual=1,
@@ -1541,7 +1841,7 @@ def phase_blocked(device, profile_path=None) -> dict:
     if profile_path:
         write_profile(profile_path, "a", "1 blocked training step",
                       lambda: trainer.run_steps(batches[:1]))
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     print(f"  launches on the blocked and dense routes: {launches}",
           flush=True)
     if launches != expected_counts():
@@ -1571,7 +1871,7 @@ def phase_unshared(device, graphs, profile_path=None) -> dict:
         spmm.reset_launch_counts()
         # --- the main path: 8 requests on the fused route, replayed
         served = [serve_captured(call, g) for g in graphs]
-        launches = spmm.launch_counts()
+        launches = launch_counts()
         # --- checks against the plain sparse route (not counted)
         print(f"  launches: {launches}", flush=True)
         expect = expected_counts(iteration_pair=N_REQUESTS * N_ITERS,
@@ -1653,11 +1953,11 @@ def phase_node(device, profile_path=None) -> dict:
         t = time.perf_counter()
         losses.append(float(trainer.run_steps([graphs[i % N_REQUESTS]])[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
-    fused_counts = spmm.launch_counts()
+    fused_counts = launch_counts()
     t = time.perf_counter()
     unfused_loss = float(unfused.run_steps(graphs[:1])[0])
     unfused_ms = (time.perf_counter() - t) * 1e3
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     # --- checks (not counted)
     unfused_counts = {k: launches[k] - fused_counts[k] for k in launches}
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
@@ -1805,10 +2105,10 @@ def phase_cli(device) -> dict:
         # --- the main path: 2 fused epochs with prefetching, then resumed
         # for a third without, one blocked epoch, the infer CLI
         first = train.main(fused + ["--n-epochs", "2", "--prefetch", "2"])
-        first_counts = spmm.launch_counts()
+        first_counts = launch_counts()
         resumed = train.main(fused + ["--n-epochs", "1", "--resume",
                                       "--prefetch", "0"])
-        resumed_counts = spmm.launch_counts()
+        resumed_counts = launch_counts()
         blocked = train.main(common + [
             "--aggregation", "blocked", "--group", str(GROUP),
             "--valid-frac", str(CLI_VALID_FRAC), "--n-epochs", "1",
@@ -1818,7 +2118,7 @@ def phase_cli(device) -> dict:
             "--model", model_path, "--input-dir", data,
             "--n-graphs", str(CLI_INFER_GRAPHS), "--hidden-dim", str(HIDDEN),
             "--n-iters", str(N_ITERS), "--benchmark"]))
-        launches = spmm.launch_counts()
+        launches = launch_counts()
         # --- checks (not counted)
         per_epoch = dict(iteration_pair=N_ITERS * (CLI_TRAIN_STEPS
                                                    + CLI_VALID_BATCHES),
@@ -2067,7 +2367,7 @@ def phase_gcn(device) -> dict:
               f"{GCN_STEPS} Adam steps ({ms:.3f} ms/step)", flush=True)
         if not torch.isfinite(losses).all() or not losses[-1] < losses[0]:
             fail(f"gcn: {name}'s loss did not fall on the card")
-    return spmm.launch_counts()
+    return launch_counts()
 
 
 def write_trackml_events(directory, n_events: int, n_particles: int,
@@ -2356,11 +2656,11 @@ def phase_prepare(device) -> tuple:
         graphs, times = prepare_graphs.run(prepare_graphs.parse_args(
             argv + ["--output-dir", card_dir]))
         prep_s = time.perf_counter() - t0
-        prep_counts = spmm.launch_counts()
+        prep_counts = launch_counts()
         trainer = train.main(train_argv)
-        train_counts = spmm.launch_counts()
+        train_counts = launch_counts()
         results, _ = infer.run(infer.parse_args(infer_argv))
-        launches = spmm.launch_counts()
+        launches = launch_counts()
         # --- checks (not counted)
         summary = prepare_graphs.graphs_summary(graphs)
         mean = lambda k: sum(t[k] for t in times) / len(times) * 1e3
@@ -2651,7 +2951,7 @@ def scan_check(label, trainers, batches) -> dict:
         stacked._local(stack, stacked=True)))]
     spmm.reset_launch_counts()
     second, replays = count_replays(lambda: stacked.run_steps(stack))
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     got = torch.cat([torch.from_numpy(first), torch.from_numpy(second)])
     ones, mem_1 = first_call_memory(one_step, stack_batches(batches[:1]))
     ones = [float(ones[0])] + [float(one_step.run_steps([b])[0])
@@ -3008,16 +3308,16 @@ def phase_parallel(device, graphs, unpadded, profile_path=None) -> dict:
         t = time.perf_counter()
         losses.append(float(trainer.run_steps([pgs[i % N_REQUESTS]])[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
-    fused_counts = spmm.launch_counts()
+    fused_counts = launch_counts()
     unfused_losses = [float(x) for x in unfused.run_steps(
         [pgs[i % N_REQUESTS] for i in range(N_PART_UNFUSED_STEPS)])]
     unfused_counts = {k: v - fused_counts[k]
-                      for k, v in spmm.launch_counts().items()}
+                      for k, v in launch_counts().items()}
     # the 5-step graph run twice: eagerly (and captured), then replayed
     dp_stack = stack_batches(batches)
     dp_losses = torch.cat([torch.from_numpy(dp_trainer.run_steps(dp_stack))
                            for _ in range(2)])
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     # --- checks (not counted)
     per_step = {k: v / N_STEPS for k, v in fused_counts.items()}
     per_unfused = {k: v / N_PART_UNFUSED_STEPS
@@ -3318,7 +3618,7 @@ def parallel_rank_work(rank, world, inputs) -> dict:
         t = time.perf_counter()
         losses.append(float(trainer.run_steps(steps)[0]))
         step_ms.append((time.perf_counter() - t) * 1e3)
-    launches = spmm.launch_counts()
+    launches = launch_counts()
     dp_losses = None
     if inputs["dp"] is not None:
         dmesh = mesh_lib.make_mesh(axis_names=(mesh_lib.DATA_AXIS,),
@@ -3381,7 +3681,8 @@ def write_profile(path, mode, what, run):
 
 # The measurement phases, by name, that --phase runs alone.
 MEASUREMENTS = {"kernels": phase_kernels, "iteration": phase_iteration,
-                "rows": phase_rows, "stream": phase_stream}
+                "rows": phase_rows, "stream": phase_stream,
+                "probes": phase_probes}
 
 
 def main():
@@ -3426,10 +3727,10 @@ def main():
           f"({it.n_recv} + {it.n_item - it.n_recv} items, {it.n_split} "
           f"splits, {it.n_slot} slots)", flush=True)
     kernels = phase_kernels(graphs[0])
-    print_probe_bounds()
     phase_iteration(graphs[0])
     phase_rows(graphs[0])
     phase_stream(graphs[0])
+    probe_rows = phase_probes(graphs[0])
     paths = (phase_serving(device, graphs, args.profile),
              phase_training(device, graphs, args.profile),
              phase_ops(graphs[0]), phase_blocked(device, args.profile),
@@ -3444,8 +3745,11 @@ def main():
     paths += (prep_launches,)
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
+                 **({"also_replaces": ALSO_REPLACES[name]}
+                    if name in ALSO_REPLACES else {}),
                  launches=sum(path[name] for path in paths),
-                 **kernels[(name, torch.bfloat16)])
+                 **(probe_rows[name] if name in probe_rows
+                    else kernels[(name, torch.bfloat16)]))
             for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

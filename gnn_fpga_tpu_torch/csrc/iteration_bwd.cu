@@ -70,6 +70,14 @@
 // forward: T tables and outputs, f32 em, e, dl and every sum; tanhf and
 // expf are the accurate versions.
 //
+// A probe's variant (gnn_iteration_pair_bwd_recompute; ops/cuda/
+// probes.py::iteration_pair_bwd_recompute): the recv pass instantiated
+// with kRecompute forms each edge's score itself, sig = sigmoid(z . w2 +
+// b2) from the z it computes anyway (one more group reduction an edge),
+// and reads no sig_sorted; the rest is the same.  It stands against the
+// stashed scores as benchmarks/probe_iter.py::_stash_bwd stood against the
+// TPU's recompute, so that the choice is a measured number on this card.
+//
 // Interface: a plain C function, loaded with ctypes.  It launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
@@ -114,6 +122,10 @@ __device__ __forceinline__ void cp_async8(char* dst, const char* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                "l"(src));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
 }
 
 __device__ __forceinline__ void cp_async_wait() {
@@ -173,8 +185,9 @@ __device__ __forceinline__ void zero(float (&acc)[kI][N]) {
 // and score; group g stages the rows pa[s], h[s] and g_mo[s] of the
 // chunk's edges g, g + groups, ... into its warp's slots of `slot` bytes
 // (an H row in slot_h, then two D rows in slot_d each), all in flight at
-// once, then computes them.
-template <typename T, int NH, int kI, int ND, int kC>
+// once, then computes them.  kRecompute: each edge's score from z . w2 +
+// b2 (b2: [1] T) rather than sig_sorted, which is then not read.
+template <typename T, int NH, int kI, int ND, int kC, bool kRecompute = false>
 __global__ void __launch_bounds__(kThreads, 2)
 recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
             int slot_h, int slot_d, const Vec<T, NH>* __restrict__ pa,
@@ -190,7 +203,7 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
             float* __restrict__ e_sorted, float2* __restrict__ dl,
             Vec<T, NH>* __restrict__ dpb, Vec<float, NH>* __restrict__ hpart,
             Vec<float, ND>* __restrict__ dh_recv,
-            Vec<float, ND>* __restrict__ dpart) {
+            Vec<float, ND>* __restrict__ dpart, const T* __restrict__ b2) {
   extern __shared__ __align__(16) char smem[];
   const Lanes ln(log_lanes);
   const int wib = threadIdx.x / kWarp;
@@ -218,7 +231,8 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
     const bool mine = ln.lane < cnt;
     const int s_l = mine ? recv_oth[base + ln.lane] : 0;
     const float em_l = mine ? em[base + ln.lane] : 0.f;
-    const float sig_l = mine ? sig_sorted[base + ln.lane] : 0.f;
+    float sig_l = 0.f;
+    if constexpr (!kRecompute) sig_l = mine ? sig_sorted[base + ln.lane] : 0.f;
     for (int k0 = 0; k0 < cnt; k0 += ln.groups) {
       const int k = k0 + ln.group;
       const long s = __shfl_sync(kFull, s_l, k & (kWarp - 1));
@@ -236,7 +250,8 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
       const int src = k & (kWarp - 1);
       const long s = __shfl_sync(kFull, s_l, src);
       const float emj = __shfl_sync(kFull, em_l, src);
-      const float sig = __shfl_sync(kFull, sig_l, src);
+      float sig = 0.f;
+      if constexpr (!kRecompute) sig = __shfl_sync(kFull, sig_l, src);
       const char* sl = buf + k * slot;
       const Vec<T, NH>* ra = staged(sl, pa, s, row_h);
       const Vec<T, ND>* rh = staged(sl + slot_h, h, s, row_d);
@@ -254,6 +269,23 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
                   to_f32(gs.v[q]) * to_f32(hn[c].v[q]);
       }
       const float de = group_sum(part, ln.lanes);
+      float zs[kI][NH];   // kRecompute: this edge's z, kept for dpb
+      if constexpr (kRecompute) {
+        float lp = 0.f;
+#pragma unroll
+        for (int c = 0; c < kI; ++c) {
+          const int cc = ln.c0 + c * ln.lanes;
+          if (!ok || cc >= row_h) continue;
+          const Vec<T, NH> a = ra[cc];
+#pragma unroll
+          for (int q = 0; q < NH; ++q) {
+            zs[c][q] = tanhf((to_f32(a.v[q]) + to_f32(own[c].v[q])) * emj +
+                             to_f32(b1r[c].v[q]));
+            lp += zs[c][q] * to_f32(w2r[c].v[q]);
+          }
+        }
+        sig = sigmoid(group_sum(lp, ln.lanes) + to_f32(b2[0]));
+      }
       if (!ok) continue;
       const float dlogit = de * emj * sig * (1.f - sig);
       const float e = sig * emj;
@@ -269,9 +301,12 @@ recv_kernel(int n_recv, int row_h, int row_d, int log_lanes, int chunk,
 #pragma unroll
         for (int q = 0; q < NH; ++q) {
           // (pa[send] + pb[recv]) * em, in the plain version's order
-          const float zz =
-              tanhf((to_f32(a.v[q]) + to_f32(own[c].v[q])) * emj +
-                    to_f32(b1r[c].v[q]));
+          float zz;
+          if constexpr (kRecompute)
+            zz = zs[c][q];
+          else
+            zz = tanhf((to_f32(a.v[q]) + to_f32(own[c].v[q])) * emj +
+                       to_f32(b1r[c].v[q]));
           hacc[c][q] += dlogit * to_f32(w2r[c].v[q]) * (1.f - zz * zz) * emj;
         }
       }
@@ -516,6 +551,7 @@ struct BwdArgs {
   float2* dl;
   float *dh_recv, *param_partial, *hpart, *dpart;
   void *dh, *dpa, *dpb, *dw2, *db1, *db2;
+  const void* b2;   // the recompute variant's, else null
 };
 
 // Runs f(NH, kI, ND, kC) (as std::integral_constant) for the call's rows
@@ -575,7 +611,7 @@ struct Staging {
   }
 };
 
-template <typename T>
+template <typename T, bool kRecompute>
 int launch(IterShape sh, int log_lanes, int send_blocks, const Staging& sg,
            const BwdArgs& a, cudaStream_t st) {
   sh.elem = sizeof(T);
@@ -596,7 +632,7 @@ int launch(IterShape sh, int log_lanes, int send_blocks, const Staging& sg,
     using VD = Vec<T, ND>;
     const int row_h = sh.hdim / NH, row_d = sh.d / ND;
     if (recv_blocks > 0) {
-      recv_kernel<T, NH, kI, ND, kC>
+      recv_kernel<T, NH, kI, ND, kC, kRecompute>
           <<<recv_blocks, kThreads, sg.smem(sg.recv_chunk, 3), st>>>(
               a.n_recv, row_h, row_d, log_lanes, sg.recv_chunk, sg.slot_h,
               sg.slot_d, static_cast<const VH*>(a.pa),
@@ -607,7 +643,8 @@ int launch(IterShape sh, int log_lanes, int send_blocks, const Staging& sg,
               a.e_sorted, a.dl, static_cast<VH*>(a.dpb),
               reinterpret_cast<Vec<float, NH>*>(a.hpart),
               reinterpret_cast<Vec<float, ND>*>(a.dh_recv),
-              reinterpret_cast<Vec<float, ND>*>(a.dpart));
+              reinterpret_cast<Vec<float, ND>*>(a.dpart),
+              static_cast<const T*>(a.b2));
       const int e = static_cast<int>(cudaGetLastError());
       if (e != 0) return e;
     }
@@ -632,6 +669,42 @@ int launch(IterShape sh, int log_lanes, int send_blocks, const Staging& sg,
       a.n_split, a.splits, a.hpart, a.dpart, static_cast<T*>(a.dh),
       static_cast<T*>(a.dpa), static_cast<T*>(a.dpb));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The body of both C entries: scores read from sig_sorted, or (kRecompute)
+// formed from b2.
+template <bool kRecompute>
+int run_bwd(int dtype, int n_edge, int d, int hdim, int h_bytes, int vec_d,
+            int log_lanes, int send_blocks, int recv_chunk, int send_chunk,
+            int slot_h, int slot_d, const void* pa, const void* pb,
+            const void* h, const float* em, const float* sig_sorted,
+            const void* b2, const int32_t* send_in_recv, const void* w2,
+            const void* b1, const void* g_mi, const void* g_mo,
+            const int32_t* recv_oth, const int32_t* send_oth,
+            const int32_t* items, int n_item, int n_recv,
+            const int32_t* splits, int n_split, float* e_sorted, float* dl,
+            float* dh_recv, float* param_partial, float* hpart, float* dpart,
+            void* dh, void* dpa, void* dpb, void* dw2, void* db1, void* db2,
+            void* stream) {
+  if (h_bytes != 0 && h_bytes != 8 && h_bytes != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const IterShape sh{n_edge, d, hdim, h_bytes != 0, vec_d, 0,
+                     h_bytes != 0 ? h_bytes : 16};
+  const Staging sg{recv_chunk, send_chunk, slot_h, slot_d};
+  const BwdArgs a{pa, pb, h, w2, b1, g_mi, g_mo, em, sig_sorted,
+                  send_in_recv, recv_oth, send_oth,
+                  reinterpret_cast<const int4*>(items),
+                  n_item, n_recv, reinterpret_cast<const int4*>(splits),
+                  n_split, e_sorted, reinterpret_cast<float2*>(dl), dh_recv,
+                  param_partial, hpart, dpart, dh, dpa, dpb, dw2, db1, db2,
+                  b2};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kRecompute>(sh, log_lanes, send_blocks, sg, a, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kRecompute>(sh, log_lanes, send_blocks, sg,
+                                             a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -664,23 +737,34 @@ int gnn_iteration_pair_bwd(
     float* e_sorted, float* dl, float* dh_recv, float* param_partial,
     float* hpart, float* dpart, void* dh, void* dpa, void* dpb, void* dw2,
     void* db1, void* db2, void* stream) {
-  if (h_bytes != 0 && h_bytes != 8 && h_bytes != 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const IterShape sh{n_edge, d, hdim, h_bytes != 0, vec_d, 0,
-                     h_bytes != 0 ? h_bytes : 16};
-  const Staging sg{recv_chunk, send_chunk, slot_h, slot_d};
-  const BwdArgs a{pa, pb, h, w2, b1, g_mi, g_mo, em, sig_sorted,
-                  send_in_recv, recv_oth, send_oth,
-                  reinterpret_cast<const int4*>(items),
-                  n_item, n_recv, reinterpret_cast<const int4*>(splits),
-                  n_split, e_sorted, reinterpret_cast<float2*>(dl), dh_recv,
-                  param_partial, hpart, dpart, dh, dpa, dpb, dw2, db1, db2};
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(sh, log_lanes, send_blocks, sg, a, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(sh, log_lanes, send_blocks, sg, a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run_bwd<false>(
+      dtype, n_edge, d, hdim, h_bytes, vec_d, log_lanes, send_blocks,
+      recv_chunk, send_chunk, slot_h, slot_d, pa, pb, h, em, sig_sorted,
+      nullptr, send_in_recv, w2, b1, g_mi, g_mo, recv_oth, send_oth, items,
+      n_item, n_recv, splits, n_split, e_sorted, dl, dh_recv, param_partial,
+      hpart, dpart, dh, dpa, dpb, dw2, db1, db2, stream);
+}
+
+// The probe's variant: gnn_iteration_pair_bwd's arguments with b2 ([1] in
+// dtype) in place of sig_sorted; the recv pass forms the scores.
+int gnn_iteration_pair_bwd_recompute(
+    int dtype, int n_edge, int d, int hdim, int h_bytes, int vec_d,
+    int log_lanes, int send_blocks, int recv_chunk, int send_chunk,
+    int slot_h, int slot_d, const void* pa, const void* pb, const void* h,
+    const float* em, const void* b2, const int32_t* send_in_recv,
+    const void* w2, const void* b1, const void* g_mi, const void* g_mo,
+    const int32_t* recv_oth, const int32_t* send_oth, const int32_t* items,
+    int n_item, int n_recv, const int32_t* splits, int n_split,
+    float* e_sorted, float* dl, float* dh_recv, float* param_partial,
+    float* hpart, float* dpart, void* dh, void* dpa, void* dpb, void* dw2,
+    void* db1, void* db2, void* stream) {
+  if (b2 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run_bwd<true>(
+      dtype, n_edge, d, hdim, h_bytes, vec_d, log_lanes, send_blocks,
+      recv_chunk, send_chunk, slot_h, slot_d, pa, pb, h, em, nullptr, b2,
+      send_in_recv, w2, b1, g_mi, g_mo, recv_oth, send_oth, items, n_item,
+      n_recv, splits, n_split, e_sorted, dl, dh_recv, param_partial, hpart,
+      dpart, dh, dpa, dpb, dw2, db1, db2, stream);
 }
 
 }  // extern "C"

@@ -47,6 +47,11 @@ _SIGNATURES = {
     "gnn_sorted_segment_sum": ([_I] * 6 + [_P] * 3 + [_I] + [_P] * 3, _I),
     "gnn_doublet_count": ([_I, _L] + [_P] * 9 + [_D] + [_P] * 2, _I),
     "gnn_doublet_emit": ([_I, _L] + [_P] * 9 + [_D] + [_P] * 4, _I),
+    "gnn_iteration_pair_bwd_recompute": ([_I] * 12 + [_P] * 13 + [_I] * 2
+                                         + [_P, _I] + [_P] * 13, _I),
+    "gnn_passthrough": ([_I, _L, _I] + [_P] * 3, _I),
+    "gnn_gather_rows": ([_I] * 4 + [_P] * 4, _I),
+    "gnn_ablate_rows": ([_I] * 7 + [_P] * 6 + [_I] + [_P] * 2, _I),
 }
 
 

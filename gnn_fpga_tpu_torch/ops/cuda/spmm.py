@@ -763,18 +763,39 @@ def aggregate_pair_bwd_reference(h, w, g_mi, g_mo, senders, receivers,
     return dh, dw
 
 
+def edge_scores_reference(pa, pb, em, w2, b1, b2, senders, receivers):
+    """The fused iteration's [E] f32 edge scores ``sigmoid(tanh((pa[s] +
+    pb[r]) * em + b1) . w2 + b2)`` in the given edge order."""
+    pre = (pa.float().index_select(0, senders)
+           + pb.float().index_select(0, receivers)) * em.float()[:, None]
+    z = torch.tanh(pre + b1.float())
+    return torch.sigmoid(z @ w2.float().reshape(-1)
+                         + b2.float().reshape(()))
+
+
 def iteration_pair_bwd_reference(pa, pb, h, em, w2, b1, b2, g_mi, g_mo,
                                  senders, receivers, n_node):
     """VJP of :func:`iteration_pair_reference` (tanh), in closed form (the
     JAX kernel's ``_iter_pair_bwd_kernel``, recomputing z and the edge
     score): ``(dh, dpa, dpb, dw2, db1, db2)``, ``db2`` of shape [1]."""
+    sig = edge_scores_reference(pa, pb, em, w2, b1, b2, senders, receivers)
+    return iteration_pair_bwd_stashed_reference(
+        pa, pb, h, em, w2, b1, sig, g_mi, g_mo, senders, receivers, n_node)
+
+
+def iteration_pair_bwd_stashed_reference(pa, pb, h, em, w2, b1, sig, g_mi,
+                                         g_mo, senders, receivers, n_node):
+    """The same VJP from STASHED edge scores ``sig`` [E] (the forward's, in
+    the given edge order; ``benchmarks/probe_iter.py::_stash_bwd``'s
+    function), in f32: ``z`` is recomputed (``dpre`` needs it), the scores
+    are read, so ``b2`` is not needed."""
     em = em.float()
     w2 = w2.float().reshape(-1)
     hf = h.float()
+    sig = sig.float()
     pre = (pa.float().index_select(0, senders)
            + pb.float().index_select(0, receivers)) * em[:, None]
     z = torch.tanh(pre + b1.float())
-    sig = torch.sigmoid(z @ w2 + b2.float().reshape(()))
     e = (sig * em)[:, None]
     gmi_r = g_mi.float().index_select(0, receivers)
     gmo_s = g_mo.float().index_select(0, senders)
@@ -984,7 +1005,8 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
     ``h.dtype``, ``db2`` shaped like ``b2``.  ``g_mi`` and ``g_mo`` are
     [V, D] in ``h.dtype``.  ``sig_sorted``: the forward's [E] f32 edge
     scores (:func:`iteration_pair_fwd`), required on CUDA tensors; the CPU
-    path recomputes them, as the plain version does.  On CUDA tensors: a
+    path reads them where given (:func:`iteration_pair_bwd_stashed_
+    reference`) and recomputes them where not.  On CUDA tensors: a
     pass over the recv items (each edge's ``dlogit``, ``dpb``, the recv
     part of ``dh``), a pass over the send items (``dpa``, ``dh``, the
     parameter sums) and one that finishes the parameter sums and the split
@@ -994,9 +1016,13 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
     dev = _kernel_device(h, "iteration_pair_bwd")
     if dev is None:
         r = plans.recv
-        out = iteration_pair_bwd_reference(pa, pb, h, em_sorted, w2, b1, b2,
-                                           g_mi, g_mo, r.sorted_oth,
-                                           r.sorted_seg, h.shape[0])
+        ids = (r.sorted_oth, r.sorted_seg, h.shape[0])
+        if sig_sorted is None:
+            out = iteration_pair_bwd_reference(pa, pb, h, em_sorted, w2, b1,
+                                               b2, g_mi, g_mo, *ids)
+        else:
+            out = iteration_pair_bwd_stashed_reference(
+                pa, pb, h, em_sorted, w2, b1, sig_sorted, g_mi, g_mo, *ids)
         out = out[:-1] + (out[-1].reshape(b2.shape),)
         return tuple(t.to(h.dtype) for t in out)
     _check_iteration("iteration_pair_bwd", pa, pb, h, em_sorted, w2, b1, b2,
@@ -1005,6 +1031,20 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
         raise ValueError("iteration_pair_bwd: sig_sorted, the forward's [E] "
                          "edge scores, is required on the card")
     _check_cuda(dev, torch.float32, sig_sorted=sig_sorted)
+    out = _launch_iteration_bwd("gnn_iteration_pair_bwd", sig_sorted, pa, pb,
+                                h, em_sorted, w2, b1, b2, g_mi, g_mo, plans)
+    iteration_pair_bwd.launches += 1
+    return out
+
+
+def _launch_iteration_bwd(entry, scores, pa, pb, h, em_sorted, w2, b1, b2,
+                          g_mi, g_mo, plans: AggPlans) -> tuple:
+    """One launch of ``csrc/iteration_bwd.cu``'s C ``entry`` on checked
+    CUDA tensors: ``gnn_iteration_pair_bwd`` with ``scores`` the
+    forward's [E] f32 edge scores, or the probes' variant
+    ``gnn_iteration_pair_bwd_recompute`` with ``scores`` = ``b2``, which
+    forms them itself.  Returns ``(dh, dpa, dpb, dw2, db1, db2)``."""
+    dev = h.device
     v, d = h.shape
     hdim = pa.shape[1]
     n_edge = plans.recv.n_edge
@@ -1026,19 +1066,18 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
                     torch.empty_like(pb))
     dw2, db1, db2 = (torch.empty_like(w2), torch.empty_like(b1),
                      torch.empty_like(b2))
-    code = _lib().gnn_iteration_pair_bwd(
+    code = getattr(_lib(), entry)(
         _DTYPE_CODES[h.dtype], n_edge, d, hdim, la.bwd_h_bytes,
         int(la.vec_d), la.bwd_log_lanes, send_blocks, la.recv_chunk,
         la.send_chunk, la.slot_h, la.slot_d, _ptr(pa), _ptr(pb),
-        _ptr(h), _ptr(em_sorted), _ptr(sig_sorted),
+        _ptr(h), _ptr(em_sorted), _ptr(scores),
         _ptr(plans.send_in_recv), _ptr(w2), _ptr(b1), _ptr(g_mi), _ptr(g_mo),
         _ptr(plans.recv.sorted_oth),
         _ptr(plans.send.sorted_oth), _ptr(it.items), it.n_item, it.n_recv,
         _ptr(it.splits), it.n_split, _ptr(e_sorted), _ptr(dl),
         _ptr(dh_recv), _ptr(param), _ptr(hpart), _ptr(dpart), _ptr(dh),
         _ptr(dpa), _ptr(dpb), _ptr(dw2), _ptr(db1), _ptr(db2), _stream(h))
-    _raise_on_error(code, "gnn_iteration_pair_bwd")
-    iteration_pair_bwd.launches += 1
+    _raise_on_error(code, entry)
     return dh, dpa, dpb, dw2, db1, db2
 
 
@@ -1358,20 +1397,34 @@ sddmm.launches = 0
 sddmm_dual.launches = 0
 
 
+# Wrappers of other modules' kernels that count here too
+# (:func:`register_kernel_wrappers`).
+_REGISTERED_WRAPPERS: list = []
+
+
+def register_kernel_wrappers(*wrappers):
+    """Has :func:`launch_counts` and its kin cover ``wrappers`` (each
+    counting in ``<wrapper>.launches``): the probes' kernels
+    (``ops/cuda/probes.py``) register themselves when imported."""
+    _REGISTERED_WRAPPERS.extend(
+        f for f in wrappers if f not in _REGISTERED_WRAPPERS)
+
+
 def _kernel_wrappers() -> tuple:
     from gnn_fpga_tpu_torch.ops.cuda.doublets import select_segments
     from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
 
     return (iteration_pair, aggregate_pair, gather_pair, iteration_pair_bwd,
             aggregate_pair_bwd, gather_pair_bwd, spmm, sddmm, sddmm_dual,
-            sorted_segment_sum, select_segments)
+            sorted_segment_sum, select_segments) + tuple(_REGISTERED_WRAPPERS)
 
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset, by name: the
     wrappers of this module, :func:`~gnn_fpga_tpu_torch.ops.cuda.
-    segment_sum.sorted_segment_sum` and :func:`~gnn_fpga_tpu_torch.ops.
-    cuda.doublets.select_segments`."""
+    segment_sum.sorted_segment_sum`, :func:`~gnn_fpga_tpu_torch.ops.
+    cuda.doublets.select_segments` and those registered by
+    :func:`register_kernel_wrappers`."""
     return {f.__name__: f.launches for f in _kernel_wrappers()}
 
 

@@ -137,9 +137,28 @@ def kernel_work(name: str, dtype_bytes: int, v: int, e: int, d: int,
     each input read once and each output written once (edge weights,
     masks and sddmm outputs f32, one int32 sender and receiver an edge, or
     the segment sum's offsets), and the arithmetic of the function, each
-    edge's score once (a tanh or exp counted as one operation)."""
+    edge's score once (a tanh or exp counted as one operation).
+
+    The probes' kernels (``ops/cuda/probes.py``): ``passthrough`` (``e``
+    rows of ``d``), ``gather_rows`` (``e`` int32 ids into ``v`` rows of
+    ``d``), the iteration backward from stashed scores
+    (``iteration_pair_bwd_stashed``: the production kernel's function as
+    ``benchmarks/probe_iter.py::_stash_bwd`` counts it, the [E] scores and
+    ``w2``, ``b1`` read too) and its ``iteration_pair_bwd_recompute``
+    (``b2`` read, no scores), and one entry a mode of the SpMM ablation
+    (``ablate_<mode>``), each with the bytes that mode must move: the
+    table once (only its first 256 rows without a gather), the plan's
+    CSR offsets (by-node modes), other endpoints (with a gather, and
+    ``ids_only``), edge order and f32 weights, and its output in the
+    tables' dtype (one row a node, or a group of
+    ``ops/cuda/probes.py::ABLATE_GROUP`` sorted edges; ``ids_only`` two
+    f32 a group);
+    ``ablate_aligned`` is ``ablate_full`` on rows padded to a 16-byte
+    pitch."""
     tab = lambda w: v * w * dtype_bytes
     ids, ev = 8 * e, 4 * e
+    if name.startswith("ablate_"):
+        return _ablation_work(name[len("ablate_"):], dtype_bytes, v, e, d)
     return {
         "iteration_pair": (2 * tab(hdim) + 3 * tab(d) + ev + ids,
                            e * (6 * hdim + 4 * d + 4)),
@@ -156,7 +175,39 @@ def kernel_work(name: str, dtype_bytes: int, v: int, e: int, d: int,
         "sddmm_dual": (4 * tab(d) + ids + ev, 4 * e * d),
         "sorted_segment_sum": (e * d * dtype_bytes + 4 * (v + 1) + tab(d),
                                e * d),
+        "passthrough": (2 * e * d * dtype_bytes, e * d),
+        "gather_rows": (4 * e + tab(d) + e * d * dtype_bytes, 0),
+        "iteration_pair_bwd_stashed": (
+            4 * tab(hdim) + 4 * tab(d) + 2 * ev + ids + 2 * hdim * dtype_bytes,
+            e * (11 * hdim + 8 * d + 8)),
+        "iteration_pair_bwd_recompute": (
+            4 * tab(hdim) + 4 * tab(d) + ev + ids
+            + (2 * hdim + 1) * dtype_bytes,
+            e * (13 * hdim + 8 * d + 8)),
     }[name]
+
+
+def _ablation_work(mode: str, dtype_bytes: int, v: int, e: int,
+                   d: int) -> tuple:
+    """:func:`kernel_work` of the SpMM ablation's ``mode``."""
+    from gnn_fpga_tpu_torch.ops.cuda.probes import ABLATE_GROUP, STATIC_ROWS
+
+    if mode == "aligned":
+        per = 16 // dtype_bytes
+        return _ablation_work("full", dtype_bytes, v, e, -(-d // per) * per)
+    groups = -(-e // ABLATE_GROUP)
+    row = d * dtype_bytes
+    order_w = 8 * e                       # the edge order and the weights
+    offsets = 4 * (v + 1)
+    return {
+        "full": (v * row + offsets + 4 * e + order_w + v * row, 2 * e * d),
+        "no_gather": (min(v, STATIC_ROWS) * row + offsets + order_w
+                      + v * row, 2 * e * d),
+        "no_scatter": (v * row + 4 * e + order_w + groups * row, 2 * e * d),
+        "compute": (min(v, STATIC_ROWS) * row + order_w
+                    + groups * row, 2 * e * d),
+        "ids_only": (4 * e + order_w + groups * 8, 2 * e),
+    }[mode]
 
 
 def fused_step_launches(n_iters: int) -> dict:

@@ -18,6 +18,7 @@ import torch
 
 from gnn_fpga_tpu_torch.core import graph as tg
 from gnn_fpga_tpu_torch.models import mpnn as tm
+from gnn_fpga_tpu_torch.ops.cuda import probes as tpr
 from gnn_fpga_tpu_torch.ops.cuda import segment_sum as tss
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
 from gnn_fpga_tpu_torch.ops.segment import segment_sum
@@ -1575,3 +1576,118 @@ def test_capture_under_gloo_on_the_card_raises(dev, world_of_one):
         Trainer(model, strategy="partitioned", mesh=mesh)
     tr = Trainer(model, strategy="partitioned", mesh=mesh, capture=False)
     assert np.isfinite(tr.run_steps(_partitioned_batches(dev, 1))).all()
+
+
+# ---------------------------------------------------------------------------
+# The probes' kernels (ops/cuda/probes.py), against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [5, 4096 * 3 + 7, 131072 * 128])
+@pytest.mark.parametrize("vectors", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_passthrough_equals_x_times_two(dev, dtype, vectors, n):
+    gen = torch.Generator().manual_seed(n % 1000)
+    x = (torch.randn(n, generator=gen) * 100).to(dev, dtype)
+    n0 = tpr.passthrough.launches
+    got, again = tpr.passthrough(x, vectors), tpr.passthrough(x, vectors)
+    torch.cuda.synchronize()
+    assert tpr.passthrough.launches == n0 + 2
+    assert got.dtype == dtype and torch.equal(got, x * 2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d", [128, 66, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_equals_index_select(dev, dtype, d):
+    gen = torch.Generator().manual_seed(d)
+    v, e = 1000, 20000
+    base = torch.randn(v + 1, d, generator=gen).to(dev, dtype)
+    idx = torch.randint(0, v, (e,), generator=gen, dtype=torch.int32).to(dev)
+    n0 = tpr.gather_rows.launches
+    for h in (base[:v], base[1:]):      # the second off 16-byte alignment
+        got = tpr.gather_rows(h, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, h.index_select(0, idx))
+    assert tpr.gather_rows.launches == n0 + 2
+
+
+def _ablation_plan(dev, v=4096, e=40000):
+    """The layered graph, with a hub of 1,120 edges on node 5 (a long
+    segment, walked by a block); seg = receivers."""
+    from gnn_fpga_tpu_torch.probes.common import layered_graph
+
+    s, r = layered_graph(v, e)
+    r = r.copy()
+    r[:1120] = 5
+    return tsp.build_edge_plan(r, s, v).to(dev)
+
+
+@pytest.mark.parametrize("mode", tpr.ABLATION_MODES)
+@pytest.mark.parametrize("d", [128, 66])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ablate_rows_match_their_plain_versions(dev, dtype, d, mode):
+    plan = _ablation_plan(dev)
+    gen = torch.Generator().manual_seed(3)
+    h = torch.randn(plan.n_node, d, generator=gen).to(dev, dtype)
+    w = torch.rand(plan.n_edge, generator=gen).to(dev)
+    table, width = ((tpr.pad_rows(h), d) if mode == "aligned"
+                    else (h, None))
+    n0 = tpr.ablate_rows.launches
+    got = tpr.ablate_rows(table, w, plan, mode, width=width)
+    again = tpr.ablate_rows(table, w, plan, mode, width=width)
+    torch.cuda.synchronize()
+    assert tpr.ablate_rows.launches == n0 + 2
+    assert torch.equal(got, again)
+    if mode in ("full", "aligned"):
+        assert torch.equal(got, tsp.spmm_raw(h, w, plan))
+    ref = tpr.ablate_rows_reference(h, w, plan, "full" if mode == "aligned"
+                                    else mode)
+    kdt = torch.float32 if mode == "ids_only" else dtype
+    tol = dict(TOL[kdt])
+    if mode in ("no_scatter", "compute", "ids_only"):
+        tol["atol"] = PARAM_SUM_ATOL[kdt] * ref.abs().max().item()
+    assert got.dtype == kdt and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+def test_ablate_rows_refuses_a_width_it_was_not_built_for(dev):
+    plan = _ablation_plan(dev)
+    h = torch.randn(plan.n_node, 7, device=dev)  # 4-byte items: not built
+    with pytest.raises(RuntimeError, match="gnn_ablate_rows"):
+        tpr.ablate_rows(h, torch.rand(plan.n_edge, device=dev), plan, "full")
+
+
+@pytest.mark.parametrize("d,hdim", [(66, 64), (128, 128), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_iteration_bwd_recompute_matches_plain_and_stashed(dev, dtype, d,
+                                                          hdim):
+    c = _case(31, 700, 6000, d, hdim, dev, dtype)
+    gen = torch.Generator().manual_seed(4)
+    g_mi, g_mo = (torch.randn(c["v"], d, generator=gen).to(dev, dtype)
+                  for _ in range(2))
+    ip = (c["pa"], c["pb"], c["h"], c["ems"], c["w2"], c["b1"], c["b2"])
+    recv = c["plans"].recv
+    sig = tsp.iteration_pair_fwd(*ip, c["plans"])[2]
+    n0 = tpr.iteration_pair_bwd_recompute.launches
+    got = tpr.iteration_pair_bwd_recompute(*ip, g_mi, g_mo, c["plans"])
+    again = tpr.iteration_pair_bwd_recompute(*ip, g_mi, g_mo, c["plans"])
+    stashed = tsp.iteration_pair_bwd(*ip, g_mi, g_mo, c["plans"], sig)
+    ref = tsp.iteration_pair_bwd_reference(*ip, g_mi, g_mo, recv.sorted_oth,
+                                           recv.sorted_seg, c["v"])
+    stash_ref = tsp.iteration_pair_bwd_stashed_reference(
+        *ip[:6], sig, g_mi, g_mo, recv.sorted_oth, recv.sorted_seg, c["v"])
+    torch.cuda.synchronize()
+    assert tpr.iteration_pair_bwd_recompute.launches == n0 + 2
+    names = ("dh", "dpa", "dpb", "dw2", "db1", "db2")
+    for name, a, b, p, q, s in zip(names, got, again, stashed, ref,
+                                   stash_ref):
+        assert torch.equal(a, b), name
+        tol = dict(TOL[dtype])
+        # w2 ~ N(0, 1) saturates the scores at H = 128: a node's rows err
+        # in proportion to its edges' terms (chip_smoke.py's
+        # phase_probes), as the parameter sums do
+        if name in ("dw2", "db1", "db2") or hdim == 128:
+            tol["atol"] = PARAM_SUM_ATOL[dtype] * q.abs().max().item()
+        torch.testing.assert_close(a.float(), q.reshape(a.shape), **tol)
+        torch.testing.assert_close(a.float(), p.float(), **tol)
+        torch.testing.assert_close(p.float(), s.reshape(p.shape), **tol)

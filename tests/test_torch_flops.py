@@ -132,3 +132,57 @@ def test_attainable_names_the_wall(card):
     # a step that is all GEMMs is bound by the tensor cores
     assert tflops.attainable(1.0, 1e12, 0.0, 0.0, "cuda")[1] == "tensor"
     assert tflops.attainable(1.0, 0.0, 1e12, 0.0, "cuda")[1] == "f32"
+
+
+# The TPU probes' default shapes (benchmarks/probe_ops.py, probe_bw.py,
+# probe_spmm_ablate.py; probe_iter.py with H = D)
+PV, PE, PD = 16_384, 131_072, 128
+
+
+def test_kernel_work_gives_the_probes_bytes():
+    """The bytes the smoke printed for the TPU probe kernels before they
+    were ported (the kernel table's rows 11, 13, 14): the backward from
+    stashed scores 69.2 MB in f32, the passthrough 134.2 MB, the gather
+    76.0 MB."""
+    nbytes = lambda name, b: tflops.kernel_work(name, b, PV, PE, PD, PD)[0]
+    assert nbytes("iteration_pair_bwd_stashed", 4) == \
+        4 * (8 * PV * PD + 4 * PE + 2 * PD)
+    assert nbytes("passthrough", 4) == 2 * PE * PD * 4
+    assert nbytes("gather_rows", 4) == 4 * (PE + PV * PD + PE * PD)
+    assert [round(nbytes(n, 4) / 1e6, 1) for n in (
+        "iteration_pair_bwd_stashed", "passthrough", "gather_rows")] == \
+        [69.2, 134.2, 76.0]
+    # the recompute form reads b2 and no scores
+    assert nbytes("iteration_pair_bwd_recompute", 4) == \
+        nbytes("iteration_pair_bwd_stashed", 4) - 4 * PE + 4
+
+
+def test_ablation_full_is_the_tpu_count_with_the_ports_output():
+    """The TPU probe's 14.3 MB (bf16 h, three f32 or int32 values an edge,
+    an f32 output of V + 1 rows rounded up to 8 plus a tile of 256) is the
+    port's ``full`` with the TPU's output table in place of the port's
+    (V rows in bf16) and the CSR offsets."""
+    tpu_out = 4 * ((PV + 8) // 8 * 8 + 256) * PD
+    tpu = 2 * PV * PD + 12 * PE + tpu_out
+    assert round(tpu / 1e6, 1) == 14.3
+    full = tflops.kernel_work("ablate_full", 2, PV, PE, PD, PD)[0]
+    assert full == tpu - tpu_out + 2 * PV * PD + 4 * (PV + 1)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("v,e,d", [(PV, PE, PD), (V, E, D)])
+def test_each_ablation_mode_counts_its_own_bytes(dtype_bytes, v, e, d):
+    work = lambda mode, width=d: tflops.kernel_work(
+        f"ablate_{mode}", dtype_bytes, v, e, width, width)
+    row, groups = d * dtype_bytes, -(-e // 2048)
+    assert work("full")[0] == 2 * v * row + 4 * (v + 1) + 12 * e
+    assert work("no_gather")[0] == (256 + v) * row + 4 * (v + 1) + 8 * e
+    assert work("no_scatter")[0] == (v + groups) * row + 12 * e
+    assert work("compute")[0] == (256 + groups) * row + 8 * e
+    assert work("ids_only") == (12 * e + 8 * groups, 2 * e)
+    assert all(work(m)[1] == 2 * e * d
+               for m in ("full", "no_gather", "no_scatter", "compute"))
+    pitch = -(-d * dtype_bytes // 16) * 16 // dtype_bytes
+    assert work("aligned") == work("full", pitch)
+    if d == PD:
+        assert work("aligned") == work("full")

@@ -29,6 +29,10 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch.ops import segment, dense_incidence, blocked\n"
         "from gnn_fpga_tpu_torch.ops.cuda import spmm, segment_sum, _build\n"
         "from gnn_fpga_tpu_torch.ops.cuda import doublets as dop\n"
+        "from gnn_fpga_tpu_torch.ops.cuda import probes as pop\n"
+        "from gnn_fpga_tpu_torch import probes\n"
+        "from gnn_fpga_tpu_torch.probes import common, bw, ops, spmm_ablate\n"
+        "from gnn_fpga_tpu_torch.probes import iter as iter_probe\n"
         "from gnn_fpga_tpu_torch.models import mpnn, gcn, baselines\n"
         "from gnn_fpga_tpu_torch.utils import serialization, profiling\n"
         "from gnn_fpga_tpu_torch.utils import flops\n"
@@ -135,3 +139,17 @@ def test_parallel_examples_and_rank_bodies_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_probes_import_no_jax_nor_the_tpu_probes():
+    """Every import statement of the port's probes and their kernels'
+    module (function-level ones included) names neither JAX, the JAX
+    package nor the TPU probes under benchmarks/."""
+    files = (sorted((ROOT / "gnn_fpga_tpu_torch" / "probes").glob("*.py"))
+             + [ROOT / "gnn_fpga_tpu_torch" / "ops" / "cuda" / "probes.py",
+                ROOT / "chip_smoke.py"])
+    assert len(files) == 8
+    for f in files:
+        bad = [m for m in _imported_modules(f)
+               if m.split(".")[0] in FORBIDDEN + ("benchmarks",)]
+        assert not bad, (f.name, bad)
