@@ -121,7 +121,16 @@ it:
    ms an event for reading, selecting and building; the train CLI on the
    prepared graphs on the fused route in bf16 at the fullevent widths, 2
    epochs, exact launch counts, finite losses; infer on them.  pandas is
-   never imported.
+   never imported;
+15. probe_steps: the measurement modules (``gnn_fpga_tpu_torch/probes``)
+   at full width and cut depth: the blocked probe's sector scale at 8
+   steps on every route with device time and idle share, the SpMM probe's
+   rows at 20 chained calls in f32 and bf16, each kernel row (forward,
+   and gradients) checked against its plain version, the doublet probe
+   (2 events a step, 2 epochs, no gate) with one fused step on its first
+   batch checked against the sparse route, the window-cut
+   probe's 256-step stack captured in one graph with its cost, and the
+   scaling harness's dp and partitioned modes at P = 1 over NCCL.
 
 The packed graphs' plans are padded to one capacity that holds all of
 them, as the train CLI pads a bucket's, so that the requests and steps of
@@ -145,8 +154,8 @@ three fused requests, three fused training steps, one blocked training
 step, three NodeClassifier training steps, one 32-step replay of the
 stacked step and three replayed partitioned (P = 1) and single-device
 steps to PATH.  ``--phase NAME`` (kernels, iteration, rows, stream or probes, on
-the first packed graph, prepare, parallel or scan; repeatable) runs only
-those phases and prints no result line:
+the first packed graph, prepare, parallel, scan or probe_steps;
+repeatable) runs only those phases and prints no result line:
 copied into an older checkout, it measures that tree's kernels the same
 way.
 """
@@ -154,6 +163,7 @@ way.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -161,6 +171,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -336,6 +347,10 @@ SHARD_F32_PROB_TOL = (1e-4, 1e-5)
 # tests, 2 absolute values, 2 comparisons; the rarely taken wrap additions
 # not counted) at the card's f64 rate outside the tensor cores
 DOUBLET_F64_OPS = 13
+# The probe_steps phase: the measurement modules at full width, cut in
+# depth (steps of the blocked probe's stacks, chained calls of the SpMM
+# probe's rows, events a step of the doublet probe).
+PROBE_BLOCKED_STEPS, PROBE_SPMM_CALLS, PROBE_DOUBLET_EVENTS = 8, 20, 2
 
 
 def fail(msg: str):
@@ -541,6 +556,42 @@ def exact(name, got, ref) -> float:
     return max_abs
 
 
+def hold(name, kern, plain, sides, dt, exact_sides=False) -> float:
+    """A kernel's outputs ``kern()`` against its plain version's
+    ``plain()`` (tuples named by ``sides``), each at KERNEL_TOL of
+    ``dt`` (bit for bit with ``exact_sides``; f32 outputs of ``dt``
+    inputs at the f32 tolerance; parameter sums at PARAM_SUM_ATOL);
+    fails on any disagreement; the largest |error|."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for side, a, b in zip(sides, got, ref):
+        if exact_sides:
+            err = max(err, exact(f"{name} {side}", a, b))
+            continue
+        rtol, atol = KERNEL_TOL[dt]
+        if side in ("dw2", "db1", "db2"):
+            atol = PARAM_SUM_ATOL[dt] * b.abs().max().item()
+        elif side in F32_OUT_SIDES:  # f32 output from T inputs
+            rtol, atol = KERNEL_TOL[torch.float32]
+        err = max(err, compare(f"{name} {side}", a, b, rtol, atol))
+    return err
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside are checks, not the path's: taken back from
+    the launch counts on leaving."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+
+    before = spmm.launch_counts()
+    try:
+        yield
+    finally:
+        after = spmm.launch_counts()
+        spmm.add_launch_counts({k: before[k] - after[k] for k in after})
+
+
 def card_peaks():
     """The card's published peaks (``utils/flops.py``, NVIDIA's data
     sheet): the one table every bound here reads.  Fails for a card the
@@ -734,20 +785,8 @@ def phase_kernels(g) -> dict:
                 ("out",)),
         }
         for name, (kern, plain, sides) in runs.items():
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = 0.0
-            for side, a, b in zip(sides, got, ref):
-                if name in EXACT_KERNELS:
-                    err = max(err, exact(f"{name} {tag} {side}", a, b))
-                    continue
-                rtol, atol = KERNEL_TOL[dt]
-                if side in ("dw2", "db1", "db2"):
-                    atol = PARAM_SUM_ATOL[dt] * b.abs().max().item()
-                elif side in F32_OUT_SIDES:  # f32 output from T inputs
-                    rtol, atol = KERNEL_TOL[torch.float32]
-                err = max(err, compare(f"{name} {tag} {side}", a, b, rtol,
-                                       atol))
+            err = hold(f"{name} {tag}", kern, plain, sides, dt,
+                       exact_sides=name in EXACT_KERNELS)
             # plain, kernel, kernel, plain: one card, interleaved
             p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
             ms, plain_ms = device_ms(k1, k2), device_ms(p1, p2)
@@ -3641,25 +3680,174 @@ def parallel_rank_work(rank, world, inputs) -> dict:
         event_grads={k: v.cpu() for k, v in ev_grads.items()})
 
 
-def profiled(run, table_to=None) -> tuple:
-    """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler;
-    ``table_to``: ``(path, what)`` appends the profiler's table to
-    ``path``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------------------
+# The probe_steps phase: the measurement modules (gnn_fpga_tpu_torch/probes)
+# ---------------------------------------------------------------------------
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages()
-    # device events only, as the table's own total counts them: the
-    # autograd Function's CPU row also carries its kernel's time
-    busy_ms = sum(e.self_device_time_total for e in table
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
+def check_doublet_step(device) -> None:
+    """One fused step of the doublet probe's model (its initial weights)
+    on its first packed doublet batch (D = 3 + 64, an odd width), held
+    against the :func:`sparse_reference`: the bf16 probabilities of the
+    real edges within BF16_PROB_MAX_ABS and BF16_PROB_MEAN_ABS, the
+    gradients in f32 and bf16 as :func:`check_gradients` holds them."""
+    from gnn_fpga_tpu_torch.probes import common, doublets
+
+    batches, *_ = doublets.prepare(PROBE_DOUBLET_EVENTS, 8, 400, device)
+    g = batches[0].to(device)
+    model = common.segment_classifier(doublets.model_config("pallas"),
+                                      device)
+    sparse, at = sparse_reference(model, device, torch.bfloat16)
+    mask = g.edge_mask > 0
+    n_real = int(mask.sum())
+    print(f"  doublet batch: {g.n_node} nodes, {g.n_edge} edges "
+          f"({n_real} real)", flush=True)
+    with torch.no_grad():
+        p = torch.sigmoid(model(g))[mask]
+        ps = torch.sigmoid(sparse(at(g)))[mask]
+    check_served([(p, 0.0)], [(ps, 0.0)], n_real, "probes.doublets")
+    purity = float(g.y[mask].sum()) / n_real
+    check_gradients(model, [g], device,
+                    {"fused": dict(fused_iteration=True)},
+                    pos_weight=max((1 - purity) / purity, 1.0))
+
+
+def phase_probe_steps(device) -> dict:
+    """The five measurement modules at full width and cut depth, each
+    checked and its readings printed (their gates run in their own full
+    runs):
+
+    - ``probes.blocked``: the sector scale (bench.py's mu200 config) at
+      PROBE_BLOCKED_STEPS steps on the dense, blocked (g = 1, 2, 4) and
+      sparse routes, each route's step timed with its device time and
+      idle share; no hand-written kernel launched;
+    - ``probes.spmm``: the layered graph at the TPU probe's defaults, f32
+      and bf16, PROBE_SPMM_CALLS chained calls a row; every kernel row
+      (forward, and the fwd+bwd rows' gradients) against its plain
+      version at KERNEL_TOL (``probes.spmm.checks``); #2, #4-#9 launched;
+    - ``probes.doublets``: PROBE_DOUBLET_EVENTS events a step, 2 epochs
+      of the fused route in bf16 and one of the sparse route on the
+      doublet graphs (the cross-join kernel once a sector graph); finite
+      record, the fused route's kernels launched; one fused step on the
+      first packed batch against the sparse route
+      (:func:`check_doublet_step`);
+    - ``probes.windowcut``: the full 256-step stack captured in one graph
+      (its cost printed) and one timed epoch;
+    - ``probes.scaling``: dp and partitioned at P = 1, one spawned rank
+      over NCCL each, the two at once, not marked mechanics only.
+
+    Returns the launches of the whole phase, the checks' taken back."""
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.probes import (blocked, doublets, scaling,
+                                           windowcut)
+    from gnn_fpga_tpu_torch.probes import spmm as spmm_probe
+
+    tag = f"[{card()}]"
+    t_phase = t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"  {what}: {now - t_lap:.1f} s", flush=True)
+        t_lap = now
+
+    spmm.reset_launch_counts()
+    n_layers, n_tracks, batch, _, dense = blocked.SCALES["sector"]
+    print(f"probe_steps: probes.blocked, sector scale, {PROBE_BLOCKED_STEPS} "
+          f"steps a stack, on {tag}", flush=True)
+    routes = blocked.run_scale("sector", n_layers, n_tracks, blocked.HIDDEN,
+                               blocked.N_ITERS, PROBE_BLOCKED_STEPS, batch,
+                               [1, 2, 4], with_dense=dense, device=device)
+    for label, rec in routes.items():
+        if not math.isfinite(rec["loss"]) or rec["ms_per_step"] <= 0:
+            fail(f"probe_steps: blocked probe, {label}: {rec}")
+    if launch_counts() != expected_counts():
+        fail(f"probe_steps: the dense, blocked or sparse route launched a "
+             f"hand-written kernel: {launch_counts()}")
+    lap("probes.blocked")
+
+    for dt in (torch.float32, torch.bfloat16):
+        out = spmm_probe.run(spmm_probe.V, spmm_probe.E, spmm_probe.D, dt,
+                             device, n_iters=PROBE_SPMM_CALLS)
+        if not all(math.isfinite(t) and t > 0 for k, t in out.items()
+                   if k != "max_abs_err"):
+            fail(f"probe_steps: probes.spmm {dt}: {out}")
+        with uncounted():       # every kernel row against its plain one
+            args = spmm_probe.inputs(spmm_probe.V, spmm_probe.E,
+                                     spmm_probe.D, dt, device)
+            dname = str(dt).replace("torch.", "")
+            for row, (kern, plain, sides) in spmm_probe.checks(
+                    *args).items():
+                hold(f"probe_steps: probes.spmm {dname} {row}", kern, plain,
+                     sides, dt)
+    spmm_kernels = ("aggregate_pair", "aggregate_pair_bwd", "gather_pair",
+                    "gather_pair_bwd", "spmm", "sddmm", "sddmm_dual")
+    counts = launch_counts()
+    if any(counts[k] == 0 for k in spmm_kernels):
+        fail(f"probe_steps: probes.spmm left a kernel unlaunched: {counts}")
+    lap("probes.spmm and its checks")
+
+    print(f"probe_steps: probes.doublets, {PROBE_DOUBLET_EVENTS} events a "
+          f"step, 2 epochs, no gate, on {tag}", flush=True)
+    before = launch_counts()
+    rec = doublets.main(["--events-per-step", str(PROBE_DOUBLET_EVENTS),
+                         "--epochs", "2", "--no-auc"])
+    after = launch_counts()
+    if not (math.isfinite(rec["final_loss"]) and rec["vs_baseline"] > 0
+            and rec["mfu"] is not None):
+        fail(f"probe_steps: doublets record malformed: {rec}")
+    for k in ("select_segments", "iteration_pair", "iteration_pair_bwd",
+              "gather_pair", "gather_pair_bwd"):
+        if after[k] == before[k]:
+            fail(f"probe_steps: probes.doublets launched no {k}")
+    with uncounted():
+        check_doublet_step(device)
+    lap("probes.doublets and its check")
+
+    print(f"probe_steps: probes.windowcut, the 256-step stack, one timed "
+          f"epoch, on {tag}", flush=True)
+    _, fields = windowcut.train(2, 2 ** 14, 64, device)
+    print(f"  {tag} windowcut: {fields['steps_per_epoch']} steps an epoch "
+          f"in {fields['calls_per_epoch']} call(s): eager first call "
+          f"{fields['eager_s']:.3f} s, capture {fields['capture_s']:.3f} s, "
+          f"capture end and instantiation {fields['instantiate_s']:.3f} s, "
+          f"memory beyond the inputs "
+          f"{fields['memory_beyond_inputs_mib']:.1f} MiB; replayed "
+          f"{fields['ms_per_step']:.4f} ms a step, "
+          f"{fields['value']:.4e} edges/s, MFU {fields['mfu']:.4%}, loss "
+          f"{fields['final_loss']:.4f}", flush=True)
+    if not math.isfinite(fields["final_loss"]):
+        fail("probe_steps: windowcut loss not finite")
+    lap("probes.windowcut")
+
+    # the two one-rank worlds start and run at once (most of their time is
+    # the spawned processes' start): their rates share the card
+    with ThreadPoolExecutor(2) as pool:
+        runs = {mode: pool.submit(scaling.run_mode, mode, [1], n_steps=30,
+                                  hidden=32, n_iters=4, n_tracks=16,
+                                  batch=4, device=device)
+                for mode in ("dp", "partitioned")}
+    for mode, run in runs.items():
+        res = run.result()[1]
+        print(f"  {tag} scaling {mode}, P = 1 ({res['backend']}, both "
+              f"modes at once): {res['edges_per_s']:.4e} edges/s",
+              flush=True)
+        if res["backend"] != "nccl" or res["mechanics_only"] or \
+                not res["edges_per_s"] > 0:
+            fail(f"probe_steps: scaling {mode} at P = 1: {res}")
+    lap("probes.scaling")
+    launches = launch_counts()
+    print(f"probe_steps: done in {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def profiled(run, table_to=None) -> tuple:
+    """``(wall ms, device busy ms)`` of ``run()`` under torch.profiler
+    (``probes/common.py::profiled``); ``table_to``: ``(path, what)``
+    appends the profiler's table to ``path``."""
+    from gnn_fpga_tpu_torch.probes import common
+
+    wall_ms, busy_ms, table = common.profiled(run)
     if table_to:
         path, what = table_to
         with open(path, "a") as f:
@@ -3691,10 +3879,10 @@ def main():
                     help="also write torch.profiler tables to PATH")
     ap.add_argument("--phase", action="append",
                     choices=tuple(MEASUREMENTS) + ("prepare", "parallel",
-                                                   "scan"),
+                                                   "scan", "probe_steps"),
                     help="run only this phase (a measurement phase on the "
-                         "first packed graph, prepare, parallel or scan; "
-                         "repeatable): no result line")
+                         "first packed graph, prepare, parallel, scan or "
+                         "probe_steps; repeatable): no result line")
     args = ap.parse_args()
     kind = phase_device()
     device = torch.device("cuda", 0)
@@ -3702,14 +3890,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     if args.phase:
-        g = (make_request(0, device)
-             if set(args.phase) - {"prepare", "parallel", "scan"} else None)
+        own = {"prepare", "parallel", "scan", "probe_steps"}
+        g = make_request(0, device) if set(args.phase) - own else None
         for name in args.phase:
             unpadded = [make_request(seed, device)
                         for seed in range(N_REQUESTS)] \
                 if name in ("parallel", "scan") else None
             if name == "prepare":
                 phase_prepare(device)
+            elif name == "probe_steps":
+                phase_probe_steps(device)
             elif name == "parallel":
                 phase_parallel(device, pad_to_covering(unpadded), unpadded,
                                args.profile)
@@ -3742,7 +3932,7 @@ def main():
               phase_parallel(device, graphs, unpadded, args.profile))
     prep_launches, kernels[("select_segments", torch.bfloat16)] = \
         phase_prepare(device)
-    paths += (prep_launches,)
+    paths += (prep_launches, phase_probe_steps(device))
     rows = [dict(name=name, route="cuda", source=SOURCES[src],
                  replaces=replaces,
                  **({"also_replaces": ALSO_REPLACES[name]}

@@ -1,21 +1,33 @@
-"""What the probes share: the layered test graph, the chained timer and
-the line that names the device.
+"""What the probes share: the layered test graph, the chained timer, the
+card's busy time under the profiler, the SegmentClassifier and Trainer
+the measurement modules train (from the JAX package's initial weights by
+default), their best-of-N timer and the line that names the device.
 
 ``layered_graph`` is ``benchmarks/probe_spmm.py``'s, bit for bit;
 ``timed`` is the counterpart of ``benchmarks/probe_ops.py``'s, with both
 of its defences: each call's first float argument is perturbed by ``c *
 1e-30``, ``c`` the sum of the whole previous output (no call can be
 skipped or sliced), and the chained calls run as one dispatch, on the card
-one captured CUDA graph replayed between two CUDA events.
+one captured CUDA graph replayed between two CUDA events.  Its kernel
+launch counts are those ``core/capture.py`` keeps: the capture takes back
+what it recorded, each replay adds it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import subprocess
 import time
 
 import numpy as np
 import torch
+
+from gnn_fpga_tpu_torch.models import mpnn
+from gnn_fpga_tpu_torch.ops.cuda import spmm
+from gnn_fpga_tpu_torch.train.trainer import Trainer
+from gnn_fpga_tpu_torch.utils import prng
+from gnn_fpga_tpu_torch.utils.serialization import load_jax_params
 
 
 def layered_graph(v, e, n_layers=8, phi_window=128, seed=0):
@@ -79,18 +91,98 @@ def timed(op, args, n_iters=200, n_reps=3):
         chained()
     torch.cuda.current_stream(x.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    before = spmm.launch_counts()
     with torch.cuda.graph(graph):
         chained()
-    graph.replay()
+    after = spmm.launch_counts()
+    # the capture launched nothing; each replay launches what it recorded
+    recorded = {k: after[k] - before[k] for k in after}
+    spmm.add_launch_counts({k: -n for k, n in recorded.items()})
+
+    def replay():
+        graph.replay()
+        spmm.add_launch_counts(recorded)
+
+    replay()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     best = float("inf")
     for _ in range(n_reps):
         start.record()
-        graph.replay()
+        replay()
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best / n_iters
+
+
+INITS = ("jax", "torch")
+
+
+def segment_classifier(cfg, device=None, seed: int = 0, init: str = "jax"):
+    """A SegmentClassifier of ``cfg`` (shared weights) on ``device``.
+    ``init="jax"``: the JAX package's initial weights of ``PRNGKey(seed)``
+    (``utils/prng.py``), the draw the TPU probes' records and AUC gates
+    were taken from; ``init="torch"``: the port's own draw from
+    ``torch.Generator().manual_seed(seed)``, as the rest of the port
+    initialises."""
+    if init not in INITS:
+        raise ValueError(f"init must be one of {INITS}, not {init!r}")
+    gen = torch.Generator().manual_seed(seed)
+    model = mpnn.init_segment_classifier(cfg, gen, device=device)
+    if init == "jax":
+        load_jax_params(model, prng.segment_classifier_params(
+            seed, cfg.input_dim, cfg.hidden_dim))
+    return model
+
+
+def make_trainer(cfg, tcfg, device=None, seed: int = 0, init: str = "jax",
+                 **trainer_kw) -> Trainer:
+    """A Trainer of :func:`segment_classifier` under ``tcfg`` (its
+    set-up print silenced); ``trainer_kw`` go to ``Trainer``."""
+    model = segment_classifier(cfg, device, seed, init)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return Trainer(model, tcfg, **trainer_kw)
+
+
+def best_of(trainer, stacked, n_reps: int = 3) -> tuple:
+    """The best of ``n_reps`` calls of ``trainer.run_steps(stacked)``,
+    each clock stopped by the call's loss readback: ``(seconds of the
+    best call, the last call's losses)``."""
+    best = float("inf")
+    for _ in range(n_reps):
+        t0 = time.perf_counter()
+        losses = trainer.run_steps(stacked)
+        best = min(best, time.perf_counter() - t0)
+    return best, losses
+
+
+def profiled(run) -> tuple:
+    """``run()`` under ``torch.profiler``: ``(wall ms with the profiler
+    on, device busy ms, the profiler's key averages)``.  Busy time is the
+    device events, as the table's own total counts them (an autograd
+    Function's CPU row also carries its kernel's time, so CPU rows are
+    left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in table
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    return wall_ms, busy_ms, table
+
+
+def device_busy_ms(run) -> float:
+    """Milliseconds the card is busy while ``run()`` runs
+    (:func:`profiled`).  Time ``run`` with the profiler off apart; the
+    idle share is ``1 - busy / wall``."""
+    return profiled(run)[1]
 
 
 def device_line(device) -> str:

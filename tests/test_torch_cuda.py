@@ -1691,3 +1691,151 @@ def test_iteration_bwd_recompute_matches_plain_and_stashed(dev, dtype, d,
         torch.testing.assert_close(a.float(), q.reshape(a.shape), **tol)
         torch.testing.assert_close(a.float(), p.float(), **tol)
         torch.testing.assert_close(p.float(), s.reshape(p.shape), **tol)
+
+
+# The tolerances at which the plain sparse route serves as the reference
+# (chip_smoke.py, PERF.md section 2): in f32, logits and gradients
+# elementwise (rtol, atol); for a bf16 route, the sparse route in f32 at
+# the bf16 route's rounded weights and inputs, probabilities by their
+# largest difference and gradients by one relative norm over all
+# parameters.
+SPARSE_REF_LOGIT_TOL = (1e-4, 1e-4)
+SPARSE_REF_GRAD_TOL = (2e-3, 1e-5)
+SPARSE_REF_BF16_PROB_MAX_ABS = 3e-2
+SPARSE_REF_BF16_GRAD_REL = 1.5e-2
+SPREAD_RUNS = 20
+
+
+def _spread(runs, rtol: float, atol: float) -> dict:
+    """How far ``runs`` (one tensor a run of the same computation on the
+    same inputs) lie from each other: the largest pairwise ``max|a_i -
+    a_j|`` (``max_abs``), ``||a_i - a_j|| / ||a_j||`` (``rel_norm``) and
+    ``|a_i - a_j| / (atol + rtol |a_j|)`` of any element (``of_tol``: 1 is
+    the tolerance itself)."""
+    a = torch.stack([r.detach().reshape(-1).double() for r in runs])
+    out = {"max_abs": float((a.max(0).values - a.min(0).values).max()),
+           "rel_norm": 0.0, "of_tol": 0.0}
+    for j in range(len(a)):
+        diff = (a - a[j]).abs()
+        out["rel_norm"] = max(out["rel_norm"], float(
+            diff.norm(dim=1).max() / a[j].norm()))
+        out["of_tol"] = max(out["of_tol"], float(
+            (diff / (atol + rtol * a[j].abs())).max()))
+    return out
+
+
+def _fullevent_packed(dev, seed=0):
+    """The fullevent graph: 36 Toy2D kNN sectors packed into one graph of
+    15,848 nodes and 180,736 edges (no plans)."""
+    from gnn_fpga_tpu_torch.data import toy2d
+
+    gs = toy2d.make_knn_segment_graphs(
+        toy2d.Toy2DConfig(n_layers=20, n_tracks=22, seed=seed), 36, k=12)
+    return tg.pack_graphs(tg.unbatch_graphs(gs), n_node=15_848,
+                          n_edge=180_736).to(dev)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16 reference", "bf16 route"])
+def test_sparse_route_spread_is_a_tenth_of_its_reference_tolerances(
+        dev, case):
+    """The sparse route sums with an atomic ``index_add_`` (and so does
+    ``index_select``'s backward), so two runs on the same inputs may
+    differ.  20 forwards and backwards of the fullevent SegmentClassifier
+    (hidden 64, 6 iterations, ``pos_weight=8``) on the packed graph with
+    one set of weights; the largest pairwise difference of the logits (or
+    probabilities) and of the parameter gradients, printed, must stay
+    under a tenth of the tolerance at which the route serves as a
+    reference:
+
+    - ``f32``: the f32 route, elementwise at the f32 tolerances;
+    - ``bf16 reference``: the reference of every bf16 check, the f32
+      route at bf16-rounded weights and inputs, probabilities by their
+      largest difference and gradients by their relative norm;
+    - ``bf16 route``: the route computing (and summing) in bf16, which is
+      a timing baseline and no reference: its spread is recorded and held
+      under the bf16 gradient tolerance itself."""
+    from gnn_fpga_tpu_torch.train.trainer import masked_bce_with_logits
+
+    g = _fullevent_packed(dev)
+    dtype = torch.bfloat16 if case == "bf16 route" else None
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=64, n_iters=6,
+                                   compute_dtype=dtype,
+                                   aggregation="sparse"),
+        torch.Generator().manual_seed(13), device=dev)
+    if case == "bf16 reference":
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16).float())
+        g = g.replace(x=g.x.to(torch.bfloat16).float())
+    outs, grads = [], []
+    for _ in range(SPREAD_RUNS):
+        model.zero_grad(set_to_none=True)
+        out = model(g)
+        masked_bce_with_logits(out, g.y, g.edge_mask, 8.0).backward()
+        outs.append(out.detach().clone() if case == "f32"
+                    else torch.sigmoid(out.detach()))
+        grads.append(torch.cat([p.grad.reshape(-1)
+                                for p in model.parameters()]))
+    torch.cuda.synchronize()
+    lo = _spread(outs, *SPARSE_REF_LOGIT_TOL)
+    gr = _spread(grads, *SPARSE_REF_GRAD_TOL)
+    print(f"\nF1 spread, sparse route, {case}, {SPREAD_RUNS} runs on "
+          f"{torch.cuda.get_device_name(0)}: "
+          f"{'logits' if case == 'f32' else 'probabilities'} max|d| "
+          f"{lo['max_abs']:.3e} ({lo['of_tol']:.3e} of the f32 logit "
+          f"tolerance), ||d|| / ||.|| {lo['rel_norm']:.3e}; gradients "
+          f"max|d| {gr['max_abs']:.3e} ({gr['of_tol']:.3e} of the f32 "
+          f"gradient tolerance), ||d|| / ||g|| {gr['rel_norm']:.3e}")
+    if case == "f32":
+        assert lo["of_tol"] <= 0.1
+        assert gr["of_tol"] <= 0.1
+    elif case == "bf16 reference":
+        assert lo["max_abs"] <= 0.1 * SPARSE_REF_BF16_PROB_MAX_ABS
+        assert gr["rel_norm"] <= 0.1 * SPARSE_REF_BF16_GRAD_REL
+    else:
+        assert gr["rel_norm"] <= SPARSE_REF_BF16_GRAD_REL
+
+
+def test_windowcut_256_step_stack_equals_one_step_calls_bit_for_bit(dev):
+    """``probes.windowcut``'s epoch, a stack of 256 steps, on a small
+    window-cut set (512 events, batches of 2): the 256-step graph (its
+    first call eager and captured, the second one replay) gives the
+    losses and weights of 512 one-step calls from the same init bit for
+    bit, at the probe's cosine rate."""
+    from gnn_fpga_tpu_torch.data import toy2d
+    from gnn_fpga_tpu_torch.probes import windowcut
+    from gnn_fpga_tpu_torch.train.trainer import stack_batches
+
+    g = toy2d.make_window_segment_graphs(
+        toy2d.Toy2DConfig(n_layers=10, n_tracks=4, seed=0), 512)
+    batches = [b.to(dev) for b in windowcut.split_epoch(g, 256)]
+    stacked, one = (windowcut.make_trainer(2, 256, dev) for _ in range(2))
+    one.model.load_state_dict(stacked.model.state_dict())
+    stack = stack_batches(batches)
+    first = stacked.run_steps(stack)
+    second, replays = _count_replays(lambda: stacked.run_steps(stack))
+    ones = [one.run_steps([b]) for b in batches + batches]
+    np.testing.assert_array_equal(np.concatenate([first, second]),
+                                  np.concatenate(ones))
+    for a, b in zip(stacked.model.parameters(), one.model.parameters()):
+        assert torch.equal(a, b)
+    assert replays == 1
+
+
+def test_timed_counts_the_replays_it_launches_and_not_the_capture(dev):
+    """``probes.common.timed`` on ``aggregate_pair``: ``n_iters`` eager
+    launches, none for the capture, ``n_iters`` for each replay (one warm,
+    ``n_reps`` timed), as ``core/capture.py`` counts a captured call."""
+    from gnn_fpga_tpu_torch.probes.common import layered_graph, timed
+
+    s, r = layered_graph(1024, 4096)
+    plans = tsp.build_agg_plans(s, r, 1024).to(dev)
+    h = torch.randn(1024, 64, device=dev)
+    w = torch.rand(4096, device=dev)
+    tsp.reset_launch_counts()
+    timed(lambda h, w: tsp.aggregate_pair(h, w, plans), (h, w), n_iters=3,
+          n_reps=2)
+    counts = tsp.launch_counts()
+    assert counts["aggregate_pair"] == 3 + (1 + 2) * 3
+    assert sum(counts.values()) == counts["aggregate_pair"]

@@ -33,9 +33,12 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch import probes\n"
         "from gnn_fpga_tpu_torch.probes import common, bw, ops, spmm_ablate\n"
         "from gnn_fpga_tpu_torch.probes import iter as iter_probe\n"
+        "from gnn_fpga_tpu_torch.probes import blocked, doublets\n"
+        "from gnn_fpga_tpu_torch.probes import spmm as spmm_probe\n"
+        "from gnn_fpga_tpu_torch.probes import scaling, windowcut\n"
         "from gnn_fpga_tpu_torch.models import mpnn, gcn, baselines\n"
         "from gnn_fpga_tpu_torch.utils import serialization, profiling\n"
-        "from gnn_fpga_tpu_torch.utils import flops\n"
+        "from gnn_fpga_tpu_torch.utils import flops, prng\n"
         "from gnn_fpga_tpu_torch.utils import plotting\n"
         "from gnn_fpga_tpu_torch.cli import train, infer, plot_graph\n"
         "from gnn_fpga_tpu_torch.cli import prepare_graphs, prepare_muon_graphs\n"
@@ -45,7 +48,7 @@ def test_port_imports_without_jax():
         "from gnn_fpga_tpu_torch.parallel import data_parallel, partition\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'orbax', 'gnn_fpga_tpu', 'pandas',\n"
-        "        'matplotlib')]\n"
+        "        'matplotlib', 'benchmarks')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -142,14 +145,47 @@ def test_parallel_examples_and_rank_bodies_import_no_jax():
 
 
 def test_probes_import_no_jax_nor_the_tpu_probes():
-    """Every import statement of the port's probes and their kernels'
-    module (function-level ones included) names neither JAX, the JAX
-    package nor the TPU probes under benchmarks/."""
+    """Every import statement of the port's probes and measurement
+    modules and their kernels' module (function-level ones included)
+    names neither JAX, the JAX package, pandas nor the TPU probes under
+    benchmarks/."""
     files = (sorted((ROOT / "gnn_fpga_tpu_torch" / "probes").glob("*.py"))
              + [ROOT / "gnn_fpga_tpu_torch" / "ops" / "cuda" / "probes.py",
                 ROOT / "chip_smoke.py"])
-    assert len(files) == 8
+    assert len(files) == 13
     for f in files:
         bad = [m for m in _imported_modules(f)
-               if m.split(".")[0] in FORBIDDEN + ("benchmarks",)]
+               if m.split(".")[0] in FORBIDDEN + ("benchmarks", "pandas")]
         assert not bad, (f.name, bad)
+
+
+def test_measurement_modules_raise_without_a_card():
+    """Each of the five measurement modules, run with no device on a
+    machine without a card, raises before it measures anything, as
+    ``core/device.py`` does; and loads neither JAX, pandas nor the TPU
+    probes."""
+    import torch
+
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a CUDA device is present; this pins the GPU-less case")
+    code = (
+        "import sys\n"
+        "from gnn_fpga_tpu_torch.probes import (blocked, doublets, scaling,\n"
+        "                                       spmm, windowcut)\n"
+        "for mod, argv in ((blocked, []), (doublets, []), (spmm, []),\n"
+        "                  (windowcut, []), (scaling, ['--mode', 'dp']),\n"
+        "                  (scaling, ['--mode', 'comm-model', '--step-ms', '1'])):\n"
+        "    try:\n"
+        "        mod.main(argv)\n"
+        "    except RuntimeError as err:\n"
+        "        assert 'no CUDA device' in str(err), err\n"
+        "    else:\n"
+        "        raise AssertionError(f'{mod.__name__} ran without a card')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'gnn_fpga_tpu', 'pandas', 'benchmarks')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
