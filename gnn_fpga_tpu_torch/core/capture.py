@@ -42,6 +42,7 @@ import time
 import torch
 
 from gnn_fpga_tpu_torch.core.graph import TensorFields, index_fields
+from gnn_fpga_tpu_torch.utils.profiling import span
 
 
 def signature(batch) -> tuple:
@@ -94,7 +95,9 @@ class CapturedCall:
     call overwrites.  :meth:`replay` runs the program again on the
     buffers as they are.  ``timings`` holds the host seconds of the first
     call's eager run, of recording the capture, and of ending it (where
-    the graph is instantiated).
+    the graph is instantiated).  Under a profiler the copies and the
+    replay are the spans ``gnn.captured.load`` and ``gnn.captured.replay``
+    (:func:`~gnn_fpga_tpu_torch.utils.profiling.span`).
     """
 
     def __init__(self, fn, device, pool=None):
@@ -115,16 +118,17 @@ class CapturedCall:
     def load(self, batch) -> None:
         """Copy ``batch`` into the static buffers (allocated at the first
         batch, whose signature they take)."""
-        sig = signature(batch)
-        if self.inputs is None:
-            self.signature = sig
-            self.inputs = _buffers_like(batch, self.device)
-        elif sig != self.signature:
-            raise ValueError(
-                "a captured call got a batch of another static signature; "
-                "each signature needs its own capture")
-        for dst, src in zip(self.inputs.tensors(), batch.tensors()):
-            dst.copy_(src, non_blocking=True)
+        with span("gnn.captured.load"):
+            sig = signature(batch)
+            if self.inputs is None:
+                self.signature = sig
+                self.inputs = _buffers_like(batch, self.device)
+            elif sig != self.signature:
+                raise ValueError(
+                    "a captured call got a batch of another static "
+                    "signature; each signature needs its own capture")
+            for dst, src in zip(self.inputs.tensors(), batch.tensors()):
+                dst.copy_(src, non_blocking=True)
 
     def __call__(self, batch):
         self.load(batch)
@@ -138,8 +142,9 @@ class CapturedCall:
         """Run the captured program on the buffers; returns its output."""
         from gnn_fpga_tpu_torch.ops.cuda import spmm
 
-        self.graph.replay()
-        spmm.add_launch_counts(self.launches)
+        with span("gnn.captured.replay"):
+            self.graph.replay()
+            spmm.add_launch_counts(self.launches)
         return self.output
 
     def _warm_up_and_capture(self):

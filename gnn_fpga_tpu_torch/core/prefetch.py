@@ -15,6 +15,14 @@ caching allocator does not hand the copy's memory out again while the
 consumer's work on it is still queued.  On the CPU the iterator only
 queues.  A batch is a :class:`~gnn_fpga_tpu_torch.core.graph.Graph` or
 another :class:`~gnn_fpga_tpu_torch.core.graph.TensorFields`.
+
+Under a profiler (:func:`~gnn_fpga_tpu_torch.utils.profiling.span`) the
+consumer's blocking take from the queue is the span ``gnn.prefetch.wait``
+and its stream hand-off ``gnn.prefetch.handoff``; the worker's pull from
+the source is ``gnn.prefetch.source``, its pin, copy and event
+``gnn.prefetch.copy``, and its blocking put (back-pressure)
+``gnn.prefetch.put_wait``.  The worker's spans are recorded only by a
+profiler that records every thread (``profiling.trace``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Any, Iterator, Optional
 import torch
 
 from gnn_fpga_tpu_torch.core.device import default_device
+from gnn_fpga_tpu_torch.utils.profiling import span
 
 
 class PrefetchIterator:
@@ -69,19 +78,26 @@ class PrefetchIterator:
         def worker():
             try:
                 n = 0
-                for batch in it:
+                source = iter(it)
+                while True:
+                    with span("gnn.prefetch.source"):
+                        batch = next(source, self._DONE)
+                    if batch is self._DONE:
+                        break
                     if self._stop.is_set():
                         return
                     if n_batches is not None and n >= n_batches:
                         break
-                    item = copy(batch)
+                    with span("gnn.prefetch.copy"):
+                        item = copy(batch)
                     # block here (bounded queue): back-pressure
-                    while not self._stop.is_set():
-                        try:
-                            self._q.put(item, timeout=0.1)
-                            break
-                        except queue.Full:
-                            continue
+                    with span("gnn.prefetch.put_wait"):
+                        while not self._stop.is_set():
+                            try:
+                                self._q.put(item, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
                     n += 1
             except BaseException as e:  # raised to the consumer
                 self._err = e
@@ -100,18 +116,20 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with span("gnn.prefetch.wait"):
+            item = self._q.get()
         if item is self._DONE:
             if self._err is not None:
                 err, self._err = self._err, None
                 raise err
             raise StopIteration
         batch, done = item
-        if done is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(done)
-            for t in batch.tensors():
-                t.record_stream(current)
+        with span("gnn.prefetch.handoff"):
+            if done is not None:
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(done)
+                for t in batch.tensors():
+                    t.record_stream(current)
         return batch
 
     def close(self):

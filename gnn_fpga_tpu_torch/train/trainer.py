@@ -64,6 +64,7 @@ from gnn_fpga_tpu_torch.core.capture import CapturedCall, scan, signature
 from gnn_fpga_tpu_torch.core.graph import Graph, TensorFields, stack_fields
 from gnn_fpga_tpu_torch.train import metrics as metrics_lib
 from gnn_fpga_tpu_torch.train.checkpoint import CheckpointManager
+from gnn_fpga_tpu_torch.utils.profiling import span
 
 
 def logger(s: str) -> None:
@@ -477,16 +478,14 @@ class Trainer:
                                     axis)
         return batch
 
-    def _run(self, kind: str, body, graph: Graph,
-             stacked: bool = False) -> torch.Tensor:
-        """``body(graph)``: eagerly with ``capture=False``, else through
-        the captured call of ``kind`` for the graph's signature (made at
-        its first batch).  The result is the caller's own (a replay's
-        output is copied out of the capture).  Under dp or partitioned,
-        ``graph`` becomes this rank's part of it first."""
+    def _call(self, kind: str, body, graph: Graph, stacked: bool = False):
+        """``(call, graph)``: ``graph`` as this rank takes it (its part
+        under dp or partitioned) and what runs ``body`` on it: ``body``
+        itself with ``capture=False``, else the captured call of ``kind``
+        for the graph's signature (made at its first batch)."""
         graph = self._local(graph, stacked)
         if not self.capture:
-            return body(graph)
+            return body, graph
         key = (kind, signature(graph))
         call = self._captured.get(key)
         if call is None:
@@ -494,8 +493,21 @@ class Trainer:
                 self._pool = torch.cuda.graph_pool_handle()
             call = self._captured[key] = CapturedCall(body, self.device,
                                                       self._pool)
-            return call(graph)
-        return call(graph).clone()
+        return call, graph
+
+    @staticmethod
+    def _replays(call) -> bool:
+        """Whether ``call``'s next output is a capture's, which the
+        capture's next replay overwrites (the caller copies it out)."""
+        return isinstance(call, CapturedCall) and call.captured
+
+    def _run(self, kind: str, body, graph: Graph) -> torch.Tensor:
+        """``body(graph)`` through :meth:`_call`; the result is the
+        caller's own."""
+        call, graph = self._call(kind, body, graph)
+        replay = self._replays(call)
+        out = call(graph)
+        return out.clone() if replay else out
 
     def _drop_captures(self) -> None:
         """Forget the captured graphs (they hold the addresses of the
@@ -512,23 +524,37 @@ class Trainer:
             self.scheduler.last_epoch += 1
         return loss
 
-    def _train_steps(self, stacked) -> torch.Tensor:
-        """One optimizer step a slice of ``stacked``, in one call: on the
-        card one replay of the K-step graph; the ``[K]`` losses stay on
-        the device."""
-        if stacked.x.dim() < 3:
-            raise ValueError(
-                "run_steps takes a stack of batches (stack_batches) or a "
-                f"sequence of batches, not one graph of x "
-                f"{tuple(stacked.x.shape)}")
-        losses = self._run("train", functools.partial(scan, self._step_body),
-                           stacked, stacked=True)
-        if self.scheduler is not None:
-            self.scheduler.last_epoch += losses.shape[0]
-        return losses
+    def _step_calls(self, stacks) -> list:
+        """``(call, stack)`` of :meth:`_call` for each stack: one call
+        runs one optimizer step a slice of its stack, on the card as one
+        replay of the K-step graph."""
+        for s in stacks:
+            if s.x.dim() < 3:
+                raise ValueError(
+                    "run_steps takes a stack of batches (stack_batches) or "
+                    "a sequence of batches, not one graph of x "
+                    f"{tuple(s.x.shape)}")
+        body = functools.partial(scan, self._step_body)
+        return [self._call("train", body, s, stacked=True) for s in stacks]
+
+    def _run_step_calls(self, calls) -> np.ndarray:
+        """Runs :meth:`_step_calls`' calls in order; their ``[K]`` losses
+        stay on the device until they are read back together, as float32,
+        after the last."""
+        losses = []
+        for call, stack in calls:
+            replay = self._replays(call)
+            out = call(stack)
+            with span("gnn.run_steps.readback"):
+                losses.append(out.clone() if replay else out)
+                if self.scheduler is not None:
+                    self.scheduler.last_epoch += out.shape[0]
+                if len(losses) == len(calls):
+                    return torch.cat(losses).float().cpu().numpy()
+        raise ValueError("run_steps got no batches")
 
     def _stacks(self, batches) -> list:
-        """``batches`` as stacks for :meth:`_train_steps`: a stack as it
+        """``batches`` as stacks for :meth:`_step_calls`: a stack as it
         is; a sequence through :func:`stack_batches`, one stack a run of
         consecutive batches of one signature."""
         if isinstance(batches, TensorFields):
@@ -592,12 +618,16 @@ class Trainer:
         first stack of a signature, which includes ``K``), each step's
         collectives under dp or partitioned included.  A sequence of
         batches is stacked first (:meth:`_stacks`).  The losses stay on
-        the device and are read back once, as float32."""
-        return self._run_stacks(self._stacks(stacked))
+        the device and are read back once, as float32.
 
-    def _run_stacks(self, stacks) -> np.ndarray:
-        losses = torch.cat([self._train_steps(s) for s in stacks])
-        return losses.float().cpu().numpy()
+        Under a profiler a call is the spans ``gnn.run_steps.prepare``
+        (the stacks and their captured calls looked up), then for each
+        stack ``gnn.captured.load``, ``gnn.captured.replay`` and
+        ``gnn.run_steps.readback`` (its output copied out; the losses to
+        the host after the last), one after another."""
+        with span("gnn.run_steps.prepare"):
+            calls = self._step_calls(self._stacks(stacked))
+        return self._run_step_calls(calls)
 
     def fit_stacked(self, train_epoch, n_epochs: int,
                     valid_batch: Optional[Graph] = None,
@@ -609,7 +639,9 @@ class Trainer:
         epoch_start = self.epoch
         for i in range(epoch_start, epoch_start + n_epochs):
             t0 = time.perf_counter()
-            losses = self._run_stacks(stacks)
+            with span("gnn.run_steps.prepare"):
+                calls = self._step_calls(stacks)
+            losses = self._run_step_calls(calls)
             dt = time.perf_counter() - t0
             avg_loss = float(losses.mean())
             self.train_losses.append(avg_loss)

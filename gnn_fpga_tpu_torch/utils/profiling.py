@@ -1,12 +1,12 @@
-"""Tracing, step timing and NaN checks.
+"""Tracing, spans and NaN checks.
 
 The counterpart of ``gnn_fpga_tpu/utils/profiling.py``:
 
-- :func:`trace`: ``torch.profiler`` around a block, written as a Chrome
-  trace (``chrome://tracing`` or Perfetto);
-- :class:`StepTimer`: per-step wall times with warm-up discard and edges/s,
-  each step ending in a synchronisation when the device is CUDA, so that
-  it times the work and not its enqueueing;
+- :func:`trace`: ``torch.profiler`` around a block, every thread's host
+  work included (the prefetching worker's), written as a Chrome trace
+  (``chrome://tracing`` or Perfetto);
+- :func:`span`: a named range of host work on the profiler's clock, for
+  the port's hot paths; free when no profiler runs;
 - :func:`nan_check`: raise on non-finite values in a module's parameters
   or a dict of tensors;
 - :func:`debug_nans`: ``torch.autograd.set_detect_anomaly``, scoped.
@@ -16,16 +16,47 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` (``gnn.<layer>.<part>``)
+    while a profiler runs, else one shared no-op context.
+
+    Under ``torch.profiler`` the range is a host event on the trace's
+    clock, beside the device's operations, so an idle gap on the device
+    can be put down to the range open at that moment; under
+    ``torch.autograd.profiler.emit_nvtx`` it is an NVTX range.  The gate
+    is the profiler's module-wide flag, which every thread sees (the
+    thread-local ``torch._C._autograd._profiler_enabled()`` reads False
+    in a worker thread even when the profiler records all threads)::
+
+        with profiling.span("gnn.captured.replay"):
+            graph.replay()
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _all_threads_config():
+    """The profiler's setting that records every thread's host events,
+    or None where the installed torch has no such field."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the block (host and CUDA activity) into
+    """Profile the block (host and CUDA activity, the host events of every
+    thread where the installed torch can record them, so that a
+    prefetching worker's spans and copies show) into
     ``log_dir/trace.json``::
 
         with profiling.trace("/tmp/trace"):
@@ -37,49 +68,10 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_all_threads_config()) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Wall-clock step timing with warm-up discard and throughput.
-
-    >>> timer = StepTimer(warmup=2, device="cuda")
-    >>> for batch in batches:
-    ...     with timer.step(n_edges=batch.n_edge):
-    ...         loss = trainer.run_steps([batch])
-    >>> timer.summary()
-    """
-
-    def __init__(self, warmup: int = 2, device=None):
-        self.warmup = warmup
-        self.sync = (torch.device(device).type == "cuda"
-                     if device is not None else False)
-        self.times: List[float] = []
-        self.edges: List[int] = []
-
-    @contextlib.contextmanager
-    def step(self, n_edges: int = 0):
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            torch.cuda.synchronize()
-        self.times.append(time.perf_counter() - t0)
-        self.edges.append(n_edges)
-
-    def summary(self) -> Dict[str, float]:
-        times = np.asarray(self.times[self.warmup:] or self.times)
-        edges = np.asarray(self.edges[self.warmup:] or self.edges)
-        out = {
-            "steps": int(len(times)),
-            "mean_s": float(times.mean()) if len(times) else 0.0,
-            "p50_s": float(np.median(times)) if len(times) else 0.0,
-            "p95_s": float(np.percentile(times, 95)) if len(times) else 0.0,
-        }
-        if edges.sum() > 0 and times.sum() > 0:
-            out["edges_per_s"] = float(edges.sum() / times.sum())
-        return out
 
 
 def nan_check(tree, name: str = "tree") -> None:
