@@ -35,31 +35,16 @@ nothing; each replay adds them, since a replay launches those kernels
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import time
 
 import torch
 
-from gnn_fpga_tpu_torch.core.graph import TensorFields, index_fields
+from gnn_fpga_tpu_torch.core import staging
+from gnn_fpga_tpu_torch.core.graph import index_fields
+# callers take the signature from here, where captures are keyed by it
+from gnn_fpga_tpu_torch.core.staging import signature  # noqa: F401
 from gnn_fpga_tpu_torch.utils.profiling import span
-
-
-def signature(batch) -> tuple:
-    """The static signature of a batch (a tensor or a
-    :class:`~gnn_fpga_tpu_torch.core.graph.TensorFields` tree such as a
-    :class:`~gnn_fpga_tpu_torch.core.graph.Graph` with its plans or
-    blocks): every tensor's shape and dtype, and every host field (the
-    plans' node, edge, item and slot counts), by field.  Batches of one
-    signature can share one captured program; the device is not part of
-    it (a host batch is copied straight into the buffers)."""
-    if isinstance(batch, torch.Tensor):
-        return (tuple(batch.shape), batch.dtype)
-    if isinstance(batch, TensorFields):
-        return (type(batch).__name__,) + tuple(
-            (f.name, signature(getattr(batch, f.name)))
-            for f in dataclasses.fields(batch))
-    return batch
 
 
 def scan(step, stacked) -> torch.Tensor:
@@ -69,13 +54,6 @@ def scan(step, stacked) -> torch.Tensor:
     ``lax.scan`` over a stack of batches."""
     n = next(stacked.tensors()).shape[0]
     return torch.stack([step(index_fields(stacked, k)) for k in range(n)])
-
-
-def _buffers_like(batch, device):
-    """A zeroed copy of ``batch``'s structure on ``device``."""
-    if isinstance(batch, torch.Tensor):
-        return torch.zeros(batch.shape, dtype=batch.dtype, device=device)
-    return batch._map(lambda v: _buffers_like(v, device))
 
 
 class CapturedCall:
@@ -92,7 +70,13 @@ class CapturedCall:
     ``call(batch)`` copies ``batch`` into the static buffers (a batch of
     another signature raises ``ValueError``) and returns ``fn``'s output:
     from the second call on it is the captured output, which the next
-    call overwrites.  :meth:`replay` runs the program again on the
+    call overwrites.  The static buffers are one byte buffer in the
+    signature's staging layout (:class:`~gnn_fpga_tpu_torch.core.staging.
+    Layout`), ``inputs`` the batch's tree of views over it.  A batch
+    staged in a buffer of that layout (a prefetched batch) is loaded with
+    one copy of the whole buffer; any other (a stack on the device, a
+    host batch) with one batched copy of its tensors.  ``load_counts``
+    counts the two.  :meth:`replay` runs the program again on the
     buffers as they are.  ``timings`` holds the host seconds of the first
     call's eager run, of recording the capture, and of ending it (where
     the graph is instantiated).  Under a profiler the copies and the
@@ -106,6 +90,8 @@ class CapturedCall:
         self.pool = pool
         self.signature = None
         self.inputs = None
+        self._buffer = self._inputs = None
+        self.load_counts = dict(one_copy=0, batched=0)
         self.output = None
         self.graph = None
         self.launches: dict = {}
@@ -119,16 +105,27 @@ class CapturedCall:
         """Copy ``batch`` into the static buffers (allocated at the first
         batch, whose signature they take)."""
         with span("gnn.captured.load"):
-            sig = signature(batch)
+            mark = staging.staged_in(batch)
+            if mark is not None:
+                layout, buffer = mark
+                sig = layout.signature
+            else:
+                sig, tensors = staging.flatten(batch)
             if self.inputs is None:
-                self.signature = sig
-                self.inputs = _buffers_like(batch, self.device)
+                layout = staging.layout(batch, sig)
+                self.signature = layout.signature
+                self._buffer = layout.buffer(self.device)
+                self.inputs, self._inputs, _ = layout.views(self._buffer)
             elif sig != self.signature:
                 raise ValueError(
                     "a captured call got a batch of another static "
                     "signature; each signature needs its own capture")
-            for dst, src in zip(self.inputs.tensors(), batch.tensors()):
-                dst.copy_(src, non_blocking=True)
+            if mark is not None:
+                self._buffer.copy_(buffer, non_blocking=True)
+                self.load_counts["one_copy"] += 1
+            else:
+                torch._foreach_copy_(self._inputs, tensors, non_blocking=True)
+                self.load_counts["batched"] += 1
 
     def __call__(self, batch):
         self.load(batch)

@@ -994,6 +994,130 @@ def test_prefetched_batches_equal_synchronous_copies(dev):
             assert torch.equal(a.cpu(), b)
 
 
+def _two_signature_batches(n, seed=1):
+    """``n`` planned host batches alternating between two signatures (the
+    plans padded to two capacities)."""
+    gen = _planned_batches(seed)
+    raw = [next(gen) for _ in range(n)]
+    cap = tsp.PlanCapacity.covering(*(b.plans for b in raw))
+    caps = [cap, dataclasses.replace(cap, recv_items=cap.recv_items + 8)]
+    return [b.replace(plans=tsp.pad_plans(b.plans, caps[i % 2]))
+            for i, b in enumerate(raw)]
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+def test_staged_batches_of_two_signatures_equal_synchronous_copies(dev,
+                                                                   pinned):
+    """50 planned batches of two alternating signatures, staged in the
+    prefetching ring (from pinned memory, or pageable through the slot's
+    twin) and used at once by the fused forward: every tensor and the
+    forward's output bit for bit as on batches copied one by one, one
+    ring a signature, slots recycled."""
+    from gnn_fpga_tpu_torch.core import staging
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    host = _two_signature_batches(50)
+    if pinned:
+        host = [b.pin_memory() for b in host]
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas"),
+        torch.Generator().manual_seed(0), device=dev)
+    with torch.inference_mode():
+        want = [tm.segment_classifier(model, b.to(dev)).cpu() for b in host]
+        it = prefetch_to_device(iter(host), size=2, device=dev)
+        n = 0
+        for g, b, probs in zip(it, host, want):
+            assert staging.staged_in(g) is not None
+            got = tm.segment_classifier(model, g)
+            for x, y in zip(g.tensors(), b.tensors()):
+                assert torch.equal(x.cpu(), y), n
+            del g
+            torch.full((1 << 20,), float("nan"), device=dev)
+            assert torch.equal(got.cpu(), probs), n
+            n += 1
+            slots = [s for r in it._rings.values() for s in r]
+            assert slots and all((s.twin is None) == pinned for s in slots)
+    assert n == 50
+    assert it.stats["staged"] == 50 and it.stats["unstaged"] == 0
+    assert it.stats["recycled"] >= 50 - 2 * (2 + 3)
+    assert it._rings == {}            # freed at exhaustion
+
+
+def test_a_consumer_that_keeps_every_staged_batch_reads_them_all(dev):
+    """A consumer that keeps every batch in a list: after the ring would
+    have cycled many times, every kept batch still holds its own values,
+    and the ring grew instead of filling a kept slot."""
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    host = _two_signature_batches(30, seed=2)
+    it = prefetch_to_device(iter(host), size=2, device=dev)
+    kept = []
+    for g in it:
+        kept.append(g)
+        torch.full((1 << 20,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+    assert len(kept) == 30 and it.stats["grown"] > 0
+    for g, b in zip(kept, host):
+        for x, y in zip(g.tensors(), b.tensors()):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("size", [1, 2])
+def test_a_slot_is_not_filled_while_queued_work_reads_it(dev, size, pinned):
+    """Each batch read by a kernel queued behind a long sleep on the
+    consumer's stream, the batch dropped at once: the worker may not fill
+    its slot again until that read has run, so each read sees its own
+    batch."""
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    n, v = 16, 1 << 18
+    host = [tg.from_coo(np.full((v, 2), i, np.float32), [0], [1], [1.0])
+            for i in range(n)]
+    if pinned:
+        host = [b.pin_memory() for b in host]
+    it = prefetch_to_device(iter(host), size=size, device=dev)
+    reads = []
+    for g in it:
+        torch.cuda._sleep(20_000_000)          # ~10 ms on the stream
+        reads.append(g.x.sum(0))
+        del g
+    torch.cuda.synchronize()
+    assert it.stats["recycled"] > 0
+    for i, r in enumerate(reads):
+        assert r.tolist() == [float(i * v)] * 2, i
+
+
+def test_captured_forward_from_staged_batches_equals_from_host(dev):
+    """A captured forward loaded from staged batches (one copy of the
+    slot's buffer) gives the bits of one loaded from the same host batches
+    (one batched copy of their tensors), and counts its loads so."""
+    from gnn_fpga_tpu_torch.core.capture import CapturedCall
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    host = [b.pin_memory() for b in _two_signature_batches(12, seed=3)[::2]]
+    model = tm.init_segment_classifier(
+        tm.SegmentClassifierConfig(input_dim=2, hidden_dim=16, n_iters=2,
+                                   aggregation="pallas",
+                                   compute_dtype=torch.bfloat16),
+        torch.Generator().manual_seed(1), device=dev)
+
+    def forward(g):
+        with torch.no_grad():
+            return tm.segment_classifier(model, g)
+
+    staged, plain = CapturedCall(forward, dev), CapturedCall(forward, dev)
+    got = [staged(g).clone()
+           for g in prefetch_to_device(iter(host), size=2, device=dev)]
+    want = [plain(b).clone() for b in host]
+    assert staged.captured and plain.captured
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert staged.load_counts == dict(one_copy=len(host), batched=0)
+    assert plain.load_counts == dict(one_copy=0, batched=len(host))
+
+
 def test_train_cli_epoch_on_the_pallas_route(dev, tmp_path):
     """One epoch of the train CLI on the fused route with prefetching:
     finite losses, and per step 2 launches each of ``iteration_pair``

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import fake_card
+
 from gnn_fpga_tpu_torch.core import capture
 from gnn_fpga_tpu_torch.core import graph as tg
 from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
@@ -144,21 +146,28 @@ def test_a_replay_is_a_span_and_counts_its_launches_once():
     tsp.reset_launch_counts()
 
 
-def test_prefetch_consumer_waits_and_hands_off_once_a_batch():
+def test_prefetch_consumer_waits_and_hands_off_once_a_batch(monkeypatch):
+    """The same spans whether the batches are only queued (the CPU) or
+    staged in the ring's slots (a card, stood in for by ``fake_card``)."""
     n = 5
-    it = prefetch_to_device((_graph(i) for i in range(50)), size=2,
-                            device="cpu")
-    with _cpu_profile() as prof:
-        got = [next(it) for _ in range(n)]
-    it.close()
-    assert not it._thread.is_alive()
-    names = [s for _, _, s in _spans(prof)]
-    assert names.count("gnn.prefetch.wait") == n
-    assert names.count("gnn.prefetch.handoff") == n
-    consumer = [s for s in names if s in ("gnn.prefetch.wait",
-                                          "gnn.prefetch.handoff")]
-    assert consumer == ["gnn.prefetch.wait", "gnn.prefetch.handoff"] * n
-    torch.testing.assert_close(got[3].x, _graph(3).x)
+    for staged in (False, True):
+        if staged:
+            fake_card.install(monkeypatch)
+        it = prefetch_to_device((_graph(i) for i in range(50)), size=2,
+                                device=None if staged else "cpu")
+        with _cpu_profile() as prof:
+            got = [next(it) for _ in range(n)]
+        it.close()
+        assert not it._thread.is_alive()
+        names = [s for _, _, s in _spans(prof)]
+        assert names.count("gnn.prefetch.wait") == n
+        assert names.count("gnn.prefetch.handoff") == n
+        consumer = [s for s in names if s in ("gnn.prefetch.wait",
+                                              "gnn.prefetch.handoff")]
+        assert consumer == ["gnn.prefetch.wait", "gnn.prefetch.handoff"] * n
+        torch.testing.assert_close(got[3].x, _graph(3).x)
+        assert (it.stats["staged"] >= n) == staged
+        assert (it.stats["unstaged"] >= n) != staged
 
 
 def test_trace_records_the_prefetch_workers_spans(tmp_path):
