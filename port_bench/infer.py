@@ -1,16 +1,19 @@
-"""The scoring driver: a closed loop of whole events, each scored by the
-infer CLI's captured forward (``cli/infer.py::captured_forward``) and its
-probabilities read back to the host.
+"""The scoring driver: a closed loop of batches of whole events, each
+batch (``events_per_batch`` events packed into one graph, default 1)
+scored by the infer CLI's captured forward
+(``cli/infer.py::captured_forward``) and its probabilities read back to
+the host.
 
 Events come from a pool made from the seed, in the route's layout, held
 in pinned host memory; ``core/prefetch.py::prefetch_to_device`` copies
-each to the card on its own stream, ``prefetch_depth`` ahead, so one event
-copies while the one before it is scored.  An event enters the pipeline
-when the prefetching thread takes it from the source; its latency runs
-from then to its probabilities on the host.  The source stops once the
-window's time has passed, and every event that entered is scored.  A
-sample of the answers, drawn from the seed (a reservoir over every event
-of the window), is kept for the check.
+each batch to the card on its own stream, ``prefetch_depth`` ahead, so
+one batch copies while the one before it is scored.  A batch's events
+enter the pipeline when the prefetching thread takes it from the source;
+their latency runs from then to the batch's probabilities on the host.
+The source stops once the window's time has passed, and every batch that
+entered is scored.  A sample of the answers, ``sample`` whole batches
+drawn from the seed (a reservoir over every batch of the window), is kept
+for the check, which holds each of their events against the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import time
 
 import torch
 
-from port_bench import judge, program, readers, reference, yardstick
+from port_bench import judge, manifest, program, readers, reference
 from port_bench.train import build_pool
 
 
@@ -38,7 +41,20 @@ class Session:
         t = readers.lap("events built", t)
         cuda = self.device.type == "cuda"
         self.pool = [b.pin_memory() if cuda else b for b in batches]
-        self.n_real = [program.real_edges(b) for b in batches]
+        self.per_batch = mix.get("events_per_batch", 1)
+        # each batch's events and their real edges' span in its output:
+        # every event's real edges in order, then the padding
+        self.spans = []
+        for k, b in enumerate(batches):
+            evs = range(k * self.per_batch, (k + 1) * self.per_batch)
+            ends = [0]
+            for i in evs:
+                ends.append(ends[-1] + self.events[i].n_edge)
+            if ends[-1] != program.real_edges(b):
+                raise ValueError(f"batch {k} holds {program.real_edges(b)} "
+                                 f"real edges, its events {ends[-1]}")
+            self.spans.append([(i, a, z) for i, a, z in
+                               zip(evs, ends, ends[1:])])
         self.w0 = reference.make_weights(cfg, wseed, self.device)
         self.model = program.make_model(cfg, mix, self.w0, self.device)
         self.forward = program.captured_forward(self.model, self.device)
@@ -52,9 +68,10 @@ class Session:
         readers.lap("the pipeline once over the pool", t)
         self.capture_s = program.capture_seconds(self.forward)
 
-    def loop(self, n_events=None, seconds=None) -> dict:
-        """The closed loop, until ``n_events`` have entered or ``seconds``
-        have passed: every latency, the answers sampled, the window."""
+    def loop(self, n_batches=None, seconds=None) -> dict:
+        """The closed loop, until ``n_batches`` have entered or
+        ``seconds`` have passed: every batch's latency, the answers
+        sampled (by the batch's place in the window), the window."""
         rng = random.Random(self.seed)
         keep = self.mix["sample"]
         sample = {}
@@ -64,7 +81,7 @@ class Session:
 
         def source():
             i = 0
-            while not stop.is_set() and (n_events is None or i < n_events):
+            while not stop.is_set() and (n_batches is None or i < n_batches):
                 enter.append(time.perf_counter())
                 yield self.pool[i % len(self.pool)]
                 i += 1
@@ -77,7 +94,7 @@ class Session:
                 probs = self.forward(g).cpu()
                 done = time.perf_counter()
                 lat.append(done - enter[i])
-                # a reservoir: each event of the window sampled alike
+                # a reservoir: each batch of the window sampled alike
                 if len(sample) < keep:
                     sample[i] = probs
                 else:
@@ -95,18 +112,19 @@ class Session:
     def window(self, seconds: float) -> dict:
         run = self.loop(seconds=seconds)
         self.sample = run["sample"]
+        # a batch's events share its latency: the quantile over batches is
+        # the quantile over every event of the window
         lat = run["latencies"]
         p95 = statistics.quantiles(lat, n=100, method="inclusive")[94]
-        return dict(infer_events_per_s=len(lat) / run["window_s"],
-                    infer_p95_ms=1e3 * p95, attempted=len(lat),
+        events = len(lat) * self.per_batch
+        return dict(infer_events_per_s=events / run["window_s"],
+                    infer_p95_ms=1e3 * p95, attempted=events,
                     window_s=run["window_s"])
 
     def flops_per_event(self) -> float:
         ev = self.events[0]
-        return yardstick.forward_flops(self.cfg["model"], ev.n_node, ev.n_edge,
-                                       self.cfg["hidden_dim"],
-                                       self.cfg["n_iters"],
-                                       self.cfg["input_dim"])
+        return manifest.family(self.cfg["model"]).forward_flops(
+            self.cfg, ev.n_node, ev.n_edge)
 
     def free_program(self) -> None:
         self.model = self.forward = None
@@ -116,18 +134,21 @@ class Session:
             torch.cuda.empty_cache()
 
     def pairs(self, rounding=None) -> list:
-        """``(the program's probabilities, the reference's)`` of each
-        sampled event, real edges only; with ``rounding`` the reference in
-        that precision stands in for the program (the control)."""
+        """``(the program's probabilities, the reference's)`` of each event
+        of the sampled batches, its real edges only; with ``rounding`` the
+        reference in that precision stands in for the program (the
+        control)."""
         reference.strict_float32()
         out = []
         for i, probs in sorted(self.sample.items()):
-            k = i % len(self.pool)
-            g = reference.graph_tensors(self.events[k].packed(), self.device)
-            want = reference.probabilities(self.w0, g, self.cfg)
-            got = (probs[:self.n_real[k]] if rounding is None else
-                   reference.probabilities(self.w0, g, self.cfg, rounding))
-            out.append((got, want))
+            for ev, a, z in self.spans[i % len(self.pool)]:
+                g = reference.graph_tensors(self.events[ev].packed(),
+                                            self.device)
+                want = reference.probabilities(self.w0, g, self.cfg)
+                got = (probs[a:z] if rounding is None else
+                       reference.probabilities(self.w0, g, self.cfg,
+                                               rounding))
+                out.append((got, want))
         return out
 
     def check(self, limits: dict, rounding=None) -> tuple:

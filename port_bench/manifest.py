@@ -5,8 +5,11 @@ mix.  The configuration is the file the manifest's ``configs`` entry
 names (``configs/<config>.json``); the mix is ``traffic/<traffic>.json``;
 the limits of the cell's correctness check are ``limits/<cell>.json``; a
 per-layer metric's reader is ``metrics/<metric>.py``, loaded by path, with
-a function ``read(slice) -> float or None``.  A new configuration, mix,
-cell or metric is new files and new entries: nothing here changes.
+a function ``read(slice) -> float or None``.  A configuration's ``model``
+names its family: the reference side ``families/<model>.py`` and the
+program's side ``builders/<model>.py``, both loaded by path
+(:func:`family`, :func:`builder`).  A new model, configuration, mix, cell
+or metric is new files and new entries: nothing here changes.
 
 :func:`problems` checks the manifest against the rules its names, units
 and sizes keep.
@@ -15,6 +18,7 @@ and sizes keep.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import re
@@ -27,6 +31,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# what a model family's two files give (families/__init__.py,
+# builders/__init__.py)
+FAMILY_FUNCTIONS = ("leaves", "logits", "forward_flops")
+BUILDER_FUNCTIONS = ("make_model", "kernel_shapes")
 
 
 @dataclasses.dataclass
@@ -86,6 +94,60 @@ def metric_reader(name: str, root: Path = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def model_files(model: str, root: Path = ROOT) -> dict:
+    """The files of ``model``'s family: ``{"families": path, "builders":
+    path}``."""
+    return {kind: Path(root) / "port_bench" / kind / f"{model}.py"
+            for kind in ("families", "builders")}
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(
+        "port_bench_" + re.sub(r"\W", "_", f"{path.parent.name}_{path.stem}"),
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _model_module(kind: str, model: str, root: Path):
+    files = model_files(model, root)
+    if not NAME.match(str(model)) or not files[kind].exists():
+        raise KeyError(f"no model {model!r}: looked for "
+                       + " and ".join(str(p) for p in files.values()))
+    return _load(files[kind])
+
+
+def family(model: str, root: Path = ROOT):
+    """The reference side of ``model``: ``families/<model>.py``, with
+    :data:`FAMILY_FUNCTIONS`.  An unknown model raises ``KeyError``."""
+    return _model_module("families", model, root)
+
+
+def builder(model: str, root: Path = ROOT):
+    """The program's side of ``model``: ``builders/<model>.py``, with
+    :data:`BUILDER_FUNCTIONS`.  An unknown model raises ``KeyError``."""
+    return _model_module("builders", model, root)
+
+
+def _model_problems(model, root: Path = ROOT) -> list:
+    """What ``model``'s family lacks: a file, or a function of one."""
+    if not NAME.match(str(model)):
+        return [f"model {model!r}"]
+    out = []
+    for (kind, path), wanted in zip(model_files(model, root).items(),
+                                    (FAMILY_FUNCTIONS, BUILDER_FUNCTIONS)):
+        rel = f"port_bench/{kind}/{path.name}"
+        if not path.exists():
+            out.append(f"model {model}: no {rel}")
+            continue
+        mod = _load(path)
+        out += [f"model {model}: {rel} has no {fn}" for fn in wanted
+                if not callable(getattr(mod, fn, None))]
+    return out
 
 
 def kernel_patterns(root: Path = ROOT) -> dict:
@@ -150,8 +212,12 @@ def problems(man: dict, root: Path = ROOT) -> list:
         if not _line(c["source"]) or len(c["reduced"]) > 16 or not all(
                 NAME.match(k) for k in c["reduced"]):
             out.append(f"config {c['name']}")
-        if not (Path(root) / c["file"]).exists():
+        file = Path(root) / c["file"]
+        if not file.exists():
             out.append(f"config file {c['file']}")
+            continue
+        out += [f"config {c['name']}: {p}" for p in _model_problems(
+            json.loads(file.read_text()).get("model"), root)]
     e2e = {m["name"] for m in man.get("end_to_end", [])}
     if "setup_s" not in e2e:
         out.append("no setup_s")

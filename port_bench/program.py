@@ -3,11 +3,12 @@ layout of the generated events (packing, plans, blocks), the model, the
 trainer and its stacks, the captured forward, the prefetching iterator,
 and the program's own counters (kernel launches, capture timings).
 
-The layout is the program's: packed events with plans for the ``pallas``
-route (``core/graph.py``: ``pack_graphs``, ``attach_plans``, plans padded
-to one ``PlanCapacity`` as the train CLI pads a bucket), sector batches
-with blocks for the ``blocked`` route (``ops/blocked.py``).  The
-reference never sees these.
+The model comes from the configuration's family (``builders/<model>.py``,
+:func:`port_bench.manifest.builder`).  The layout is the program's:
+packed events with plans for the ``pallas`` route (``core/graph.py``:
+``pack_graphs``, ``attach_plans``, plans padded to one ``PlanCapacity``
+as the train CLI pads a bucket), sector batches with blocks for the
+``blocked`` route (``ops/blocked.py``).  The reference never sees these.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import sys
 import numpy as np
 import torch
 
-from port_bench import gen
+from port_bench import gen, manifest
 
 
 def load_library() -> None:
@@ -43,24 +44,28 @@ def _sector_batch(ev: gen.Event):
         else torch.from_numpy(np.ascontiguousarray(ev.node_y)))
 
 
-def layout(ev: gen.Event, events_cfg: dict, mix: dict):
-    """One event as the mix's route takes it, on the host: ``packed`` (one
-    graph, padded to the configuration's ``pad_nodes`` and ``pad_edges``,
-    with plans) or ``blocked`` (a batch of sectors with edges permuted
-    into blocks of ``group`` layer pairs and ``block_e`` slots)."""
+def layout(events: list, events_cfg: dict, mix: dict):
+    """A batch of events as the mix's route takes it, on the host:
+    ``packed`` (one graph of every event's sectors in order, padded to
+    the configuration's ``pad_nodes`` and ``pad_edges`` an event, with
+    plans) or ``blocked`` (one event's batch of sectors with edges
+    permuted into blocks of ``group`` layer pairs and ``block_e``
+    slots)."""
     from gnn_fpga_tpu_torch.core import graph as G
     from gnn_fpga_tpu_torch.ops import blocked
 
-    batch = _sector_batch(ev)
     if mix["layout"] == "packed":
-        g = G.pack_graphs(G.unbatch_graphs(batch),
-                          n_node=events_cfg["pad_nodes"],
-                          n_edge=events_cfg["pad_edges"])
+        graphs = [g for ev in events
+                  for g in G.unbatch_graphs(_sector_batch(ev))]
+        g = G.pack_graphs(graphs, n_node=len(events) * events_cfg["pad_nodes"],
+                          n_edge=len(events) * events_cfg["pad_edges"])
         return G.attach_plans(g)
     if mix["layout"] == "blocked":
+        if len(events) != 1:
+            raise ValueError("the blocked layout takes one event a batch")
         return blocked.attach_blocks_layered(
-            batch, gen.layer_offsets(events_cfg), group=mix["group"],
-            block_e=mix["block_e"])
+            _sector_batch(events[0]), gen.layer_offsets(events_cfg),
+            group=mix["group"], block_e=mix["block_e"])
     raise ValueError(f"unknown layout {mix['layout']!r}")
 
 
@@ -85,35 +90,22 @@ def real_edges(batch) -> int:
 
 
 def kernel_shapes(batch, cfg: dict) -> dict:
-    """The shapes the kernels' tables have on ``batch``: padded nodes and
-    edges, the widths, the compute dtype's bytes."""
-    return dict(v=batch.n_node, e=batch.n_edge,
-                d=cfg["input_dim"] + cfg["hidden_dim"], hdim=cfg["hidden_dim"],
-                dtype_bytes=torch.finfo(
-                    getattr(torch, cfg["compute_dtype"])).bits // 8)
+    """The shapes the kernels' tables have on ``batch``, as the
+    configuration's model family gives them (``builders/<model>.py``)."""
+    return manifest.builder(cfg["model"]).kernel_shapes(batch, cfg)
 
 
 def make_model(cfg: dict, mix: dict, weights: dict, device):
-    """The configuration's model on the mix's route, holding ``weights``
-    (by parameter name)."""
-    from gnn_fpga_tpu_torch.models import mpnn
-
-    kw = dict(input_dim=cfg["input_dim"], hidden_dim=cfg["hidden_dim"],
-              n_iters=cfg["n_iters"], dtype=getattr(torch, cfg["param_dtype"]),
-              compute_dtype=getattr(torch, cfg["compute_dtype"]),
-              aggregation=mix["route"])
-    if cfg["model"] == "segment_classifier":
-        model = mpnn.init_segment_classifier(
-            mpnn.SegmentClassifierConfig(**kw), torch.Generator(), device)
-    elif cfg["model"] == "node_classifier":
-        model = mpnn.init_node_classifier(
-            mpnn.NodeClassifierConfig(**kw), torch.Generator(), device)
-    else:
-        raise ValueError(f"unknown model {cfg['model']!r}")
+    """The configuration's model on the mix's route, built by its family
+    (``builders/<model>.py``) and holding ``weights`` (by parameter name,
+    the names of the family's ``leaves``)."""
+    model = manifest.builder(cfg["model"]).make_model(cfg, mix, device)
+    want = {name for name, _, _ in manifest.family(cfg["model"]).leaves(cfg)}
     params = dict(model.named_parameters())
-    if set(params) != set(weights):
-        raise ValueError(f"the model's parameters {sorted(params)} are not "
-                         f"the benchmark's {sorted(weights)}")
+    if set(params) != want or set(weights) != want:
+        raise ValueError(f"the model's parameters {sorted(params)} or the "
+                         f"weights {sorted(weights)} are not the family's "
+                         f"leaves {sorted(want)}")
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(weights[name])

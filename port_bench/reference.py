@@ -1,21 +1,12 @@
-"""The plain reference: the interaction networks, their loss and Adam in
+"""The plain reference: a model family's forward, the loss and Adam in
 plain PyTorch, in float32 with TF32 off.
 
-It follows the published description (``MPNN_Seg_ACTS_mu200.ipynb``,
-``MPNN_HitClassifier.ipynb`` of jmduarte/gnn-fpga):
-
-    h = [tanh(x @ Wi + bi), x]
-    n_iters x:  e = sigmoid(l2(tanh(pa h[s] + pb h[r] + b1)))   (edge net)
-                mi[n] = sum_{r == n} e h[s],  mo[n] = sum_{s == n} e h[r]
-                h = [tanh(l2(tanh(l1([mi, mo, h])))), x]          (node net)
-    head:       edge logits l2(tanh(pa h[s] + pb h[r] + b1)), or node
-                logits h @ Wout + bout
-
-on one graph given as plain arrays (sector graphs concatenated,
-:meth:`port_bench.gen.Event.packed`): aggregation is worked out here from
-the senders and receivers with ``index_add``.  The loss is the masked
-mean of the BCE on logits, positives weighted by ``pos_weight``; Adam is
-written out, with the cosine rate of a step count.
+The forward is the family's (``families/<model>.py``, found by the
+configuration's ``model``: :func:`port_bench.manifest.family`), on one
+graph given as plain arrays (sector graphs concatenated,
+:meth:`port_bench.gen.Event.packed`).  The loss is the masked mean of the
+BCE on logits, positives weighted by ``pos_weight``; Adam is written out,
+with the cosine rate of a step count.
 
 ``rounding`` computes the same in a lower precision, to serve as the
 control of the check: every parameter, input, intermediate and gradient
@@ -29,6 +20,8 @@ import math
 from typing import Callable, Optional
 
 import torch
+
+from port_bench import manifest
 
 E4M3_MAX = 448.0
 
@@ -66,27 +59,11 @@ def rounder(rounding: str) -> Callable:
     return lambda t: _Round.apply(t, fn)
 
 
-def leaves(cfg: dict) -> list:
-    """``(name, shape, fan_in)`` of every parameter, in a fixed order:
-    weights ``[out, in]``, each drawn from U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)); the edge network's split first layer takes the
-    fan-in of the whole ``[2D, H]``."""
-    f, h = cfg["input_dim"], cfg["hidden_dim"]
-    d = f + h
-    out = [("input.weight", (h, f), f), ("input.bias", (h,), f),
-           ("edge.pa.weight", (h, d), 2 * d), ("edge.pb.weight", (h, d), 2 * d),
-           ("edge.b1", (h,), 2 * d),
-           ("edge.l2.weight", (1, h), h), ("edge.l2.bias", (1,), h),
-           ("node.l1.weight", (h, 3 * d), 3 * d), ("node.l1.bias", (h,), 3 * d),
-           ("node.l2.weight", (h, h), h), ("node.l2.bias", (h,), h)]
-    if cfg["model"] == "node_classifier":
-        out += [("output.weight", (1, d), d), ("output.bias", (1,), d)]
-    return out
-
-
 def make_weights(cfg: dict, seed: int, device) -> dict:
-    """Every parameter from ``seed``, drawn on ``device`` in one call."""
-    spec = leaves(cfg)
+    """Every parameter of the family's ``leaves`` from ``seed``, drawn on
+    ``device`` in one call: each U(-1/sqrt(fan_in), 1/sqrt(fan_in)), in
+    the leaves' order."""
+    spec = manifest.family(cfg["model"]).leaves(cfg)
     sizes = [math.prod(shape) for _, shape, _ in spec]
     gen = torch.Generator(device=device).manual_seed(seed)
     u = torch.rand(sum(sizes), generator=gen, device=device,
@@ -107,29 +84,9 @@ def graph_tensors(packed: dict, device) -> dict:
 
 
 def logits(w: dict, g: dict, cfg: dict, r: Callable = lambda t: t):
-    """Edge logits ``[E]`` (segment classifier) or node logits ``[V]``
-    (node classifier), float32; ``r`` rounds what a lower precision
-    would."""
-    lin = lambda t, name: r(t @ r(w[name + ".weight"]).T
-                            + r(w[name + ".bias"]))
-    x = r(g["x"])
-    s, rcv = g["senders"], g["receivers"]
-    h = torch.cat([r(torch.tanh(lin(x, "input"))), x], dim=1)
-
-    def edge_net(h):
-        pre = r(h[s] @ r(w["edge.pa.weight"]).T) + r(h[rcv] @ r(w["edge.pb.weight"]).T)
-        z = r(torch.tanh(r(pre + r(w["edge.b1"]))))
-        return lin(z, "edge.l2")[:, 0]
-
-    for _ in range(cfg["n_iters"]):
-        e = r(torch.sigmoid(edge_net(h)))[:, None]
-        mi = r(torch.zeros_like(h).index_add(0, rcv, r(e * h[s])))
-        mo = r(torch.zeros_like(h).index_add(0, s, r(e * h[rcv])))
-        z = r(torch.tanh(lin(torch.cat([mi, mo, h], dim=1), "node.l1")))
-        h = torch.cat([r(torch.tanh(lin(z, "node.l2"))), x], dim=1)
-    if cfg["model"] == "node_classifier":
-        return lin(h, "output")[:, 0].float()
-    return edge_net(h).float()
+    """The family's logits (one an edge or a node, float32); ``r`` rounds
+    what a lower precision would."""
+    return manifest.family(cfg["model"]).logits(w, g, cfg, r)
 
 
 def loss(w: dict, g: dict, cfg: dict, r: Callable = lambda t: t):

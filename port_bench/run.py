@@ -70,11 +70,12 @@ def traced_slice(s, cell, device_name: str):
         trace = tracing.profile(lambda: [s.call() for _ in range(n)])
         units, flops = n * cell.traffic["steps_per_call"], s.flops_per_step()
     else:
-        n = cell.traffic["trace_events"]
+        n = -(-cell.traffic["trace_events"] // s.per_batch)
         run = {}
-        trace = tracing.profile(lambda: run.update(s.loop(n_events=n)))
+        trace = tracing.profile(lambda: run.update(s.loop(n_batches=n)))
         s.sample = run["sample"]
-        units, flops = len(run["latencies"]), s.flops_per_event()
+        units = len(run["latencies"]) * s.per_batch
+        flops = s.flops_per_event()
     sl = readers.Slice(trace=trace, kind=kind, units=units,
                        useful_flops=flops, launches=program.launch_counts(),
                        shapes=s.shapes, peaks=yardstick.peaks(device_name),

@@ -13,8 +13,8 @@ from port_bench import manifest
 REPO = manifest.ROOT
 EVENTS = dict(sectors=4, n_layers=10, n_tracks=10, k=6, pad_nodes=512,
               pad_edges=4096)
-MIX = dict(pool=4, steps_per_call=4, sample=3, trace_events=8,
-           block_e=240)
+MIX = dict(pool=4, events_per_batch=2, steps_per_call=4, sample=3,
+           trace_events=8, block_e=240)
 
 
 def small_root(tmp: Path) -> Path:

@@ -10,7 +10,7 @@ from port_bench.tests.small import small_root
 
 TRAIN_CELLS = ["seg_h64i6-event_train", "hit_h64i7-event_train",
                "seg_h64i6-sector_train_blocked"]
-INFER_CELLS = ["seg_h64i6-event_infer"]
+INFER_CELLS = ["seg_h64i6-event_infer_b16"]
 SEED = 2**31 + 101
 
 

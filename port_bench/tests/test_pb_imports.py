@@ -22,6 +22,7 @@ def _loaded(code: str) -> set:
 
 def test_a_run_loads_no_jax():
     code = "\n".join([
+        "import json",
         "from port_bench import run, train, infer, program, tracing, judge",
         "from port_bench import manifest, readers, gen, reference, yardstick",
         "import gnn_fpga_tpu_torch.train.trainer, gnn_fpga_tpu_torch.cli.infer",
@@ -29,23 +30,54 @@ def test_a_run_loads_no_jax():
         "import gnn_fpga_tpu_torch.models.mpnn, gnn_fpga_tpu_torch.ops.cuda._build",
         "for w in manifest.read_manifest()['per_layer']:",
         "    manifest.metric_reader(w['name'])",
+        "for c in manifest.read_manifest()['configs']:",
+        "    cfg = json.loads((manifest.ROOT / c['file']).read_text())",
+        "    manifest.family(cfg['model']), manifest.builder(cfg['model'])",
     ])
     loaded = _loaded(code)
     assert "gnn_fpga_tpu_torch" in loaded
     assert not loaded & FORBIDDEN
 
 
+# what the reference side may import: the standard library's modules
+# below, torch, numpy, and of the harness the lookup and the families
+ALLOWED = {"__future__", "math", "typing", "dataclasses", "statistics",
+           "functools", "importlib", "json", "re", "pathlib", "torch",
+           "numpy"}
+HARNESS = ("port_bench.manifest", "port_bench.families")
+
+
+def _imports(path) -> set:
+    """Every module a file imports (``from a import b`` as ``a.b``)."""
+    out = set()
+    for n in ast.walk(ast.parse(path.read_text())):
+        if isinstance(n, ast.Import):
+            out |= {a.name for a in n.names}
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            out |= {f"{n.module}.{a.name}" for a in n.names}
+    return out
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = _loaded("import port_bench.reference, port_bench.judge")
+    loaded = _loaded("\n".join([
+        "import json",
+        "import port_bench.reference, port_bench.judge",
+        "from port_bench import manifest, reference",
+        "for c in manifest.read_manifest()['configs']:",
+        "    cfg = json.loads((manifest.ROOT / c['file']).read_text())",
+        "    reference.make_weights(cfg, 1, 'cpu')",
+    ]))
     assert not loaded & (FORBIDDEN | {"gnn_fpga_tpu_torch"})
-    for mod in ("reference.py", "judge.py", "yardstick.py", "gen.py"):
-        tree = ast.parse((manifest.HERE / mod).read_text())
-        names = {a.name.split(".")[0] for n in ast.walk(tree)
-                 if isinstance(n, ast.Import) for a in n.names}
-        names |= {n.module.split(".")[0] for n in ast.walk(tree)
-                  if isinstance(n, ast.ImportFrom) and n.module}
-        assert names <= {"__future__", "math", "typing", "torch", "numpy",
-                         "dataclasses", "statistics"}, (mod, names)
+    files = [manifest.HERE / m for m in ("reference.py", "judge.py",
+                                         "yardstick.py", "gen.py",
+                                         "manifest.py")]
+    files += sorted((manifest.HERE / "families").glob("*.py"))
+    assert len(files) > 5
+    for path in files:
+        bad = {m for m in _imports(path)
+               if m.split(".")[0] not in ALLOWED
+               and not any(m == h or m.startswith(h + ".") for h in HARNESS)}
+        assert not bad, (path.name, bad)
 
 
 def test_no_card_no_result():

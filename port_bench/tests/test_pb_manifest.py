@@ -1,8 +1,13 @@
 """The manifest keeps its rules, every cell finds its files by name, and a
-new configuration, mix, metric and cell come from new files alone."""
+new configuration, mix, metric, cell and model family come from new files
+alone."""
 
 import copy
 import json
+import os
+import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -91,3 +96,88 @@ def test_a_new_config_mix_metric_and_cell_from_files_alone(tmp_path):
     assert list(out)[-1] == "checks"
     read = manifest.metric_reader("steps_counted", root)
     assert read(type("S", (), {"units": 7})) == 7.0
+
+
+# run from the copy's root, so that ``port_bench`` is the copy's, as in a
+# checkout; the program comes from the repository
+NEW_FAMILY_RUN = """
+import json, pathlib
+from port_bench import gen, manifest, program, reference, run
+cell = manifest.load_cell("segcopy_h64i6-event_train")
+cfg = cell.config
+rngs, wseed = gen.streams(2**31 + 3, 1)
+ev = gen.make_event(cfg["events"], rngs[0])
+w = reference.make_weights(cfg, wseed, "cpu")
+g = reference.graph_tensors(ev.packed(), "cpu")
+model = program.make_model(cfg, cell.traffic, w, "cpu")
+out = run.measure(cell, 12345, 0.2, False, "cpu", "cpu")
+print(json.dumps(dict(
+    harness=str(manifest.ROOT), family=manifest.family(cfg["model"]).__file__,
+    builder=manifest.builder(cfg["model"]).__file__,
+    loss=float(reference.loss(w, g, cfg)).hex(),
+    as_segment_classifier=float(reference.loss(
+        w, g, dict(cfg, model="segment_classifier"))).hex(),
+    params=sorted(n for n, _ in model.named_parameters()), weights=sorted(w),
+    correct=out["correct"])))
+"""
+
+
+def _files(d) -> dict:
+    return {str(p.relative_to(d)): p.read_bytes() for p in sorted(d.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_new_model_family_from_files_alone(tmp_path):
+    """A family and a builder under a new name (copies of the segment
+    classifier's), a configuration naming it and its cell: new files and
+    new entries, and the cell runs."""
+    root = small_root(tmp_path)
+    pb = root / "port_bench"
+    before = _files(pb)
+    man0 = json.loads((root / "BENCHMARK.json").read_text())
+    for kind in ("families", "builders"):
+        shutil.copy(pb / kind / "segment_classifier.py", pb / kind / "seg_copy.py")
+    cfg = json.loads((pb / "configs" / "seg_h64i6.json").read_text())
+    cfg.update(name="segcopy_h64i6", model="seg_copy")
+    (pb / "configs" / "segcopy_h64i6.json").write_text(json.dumps(cfg))
+    shutil.copy(pb / "limits" / "seg_h64i6-event_train.json",
+                pb / "limits" / "segcopy_h64i6-event_train.json")
+    cell = "segcopy_h64i6-event_train"
+    man = copy.deepcopy(man0)
+    man["configs"].append(dict(man["configs"][0], name="segcopy_h64i6",
+                               file="port_bench/configs/segcopy_h64i6.json",
+                               why="a test"))
+    man["workloads"].append(dict(name=cell, config="segcopy_h64i6",
+                                 traffic="event_train", chips=1, why="a test"))
+    for m in man["end_to_end"] + man["per_layer"]:
+        if "seg_h64i6-event_train" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    assert manifest.problems(man, root) == []
+
+    out = subprocess.run(
+        [sys.executable, "-c", NEW_FAMILY_RUN], cwd=root, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1",
+                 PYTHONPATH=os.pathsep.join([str(root), str(manifest.ROOT)])))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["harness"] == str(root.resolve())
+    assert got["family"] == str(pb / "families" / "seg_copy.py")
+    assert got["builder"] == str(pb / "builders" / "seg_copy.py")
+    assert got["loss"] == got["as_segment_classifier"]
+    assert got["params"] == sorted(got["weights"])
+    assert got["correct"]
+
+    # no file of the copy's harness changed; the manifest only gained entries
+    after = _files(pb)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {
+        "families/seg_copy.py", "builders/seg_copy.py",
+        "configs/segcopy_h64i6.json", "limits/segcopy_h64i6-event_train.json"}
+    for m in man["end_to_end"] + man["per_layer"]:
+        if cell in m.get("workloads", []):
+            m["workloads"].remove(cell)
+    man["configs"].pop()
+    man["workloads"].pop()
+    assert man == man0

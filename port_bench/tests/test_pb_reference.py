@@ -21,7 +21,7 @@ def _setup(name, route, n_events=1, seed=2**31 + 11):
     rngs, wseed = gen.streams(seed, n_events)
     events = [gen.make_event(cfg["events"], r) for r in rngs]
     batches = program.one_signature(
-        [program.layout(e, cfg["events"], mix) for e in events])
+        [program.layout([e], cfg["events"], mix) for e in events])
     w = reference.make_weights(cfg, wseed, "cpu")
     return cfg, mix, events, batches, w
 

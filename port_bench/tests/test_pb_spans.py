@@ -13,7 +13,7 @@ from port_bench.tracing import SPAN, Op, Trace
 MS = 1_000_000       # ns
 TRAIN_CELLS = ["seg_h64i6-event_train", "hit_h64i7-event_train",
                "seg_h64i6-sector_train_blocked"]
-INFER_CELLS = ["seg_h64i6-event_infer"]
+INFER_CELLS = ["seg_h64i6-event_infer_b16"]
 NEW = {"prologue_ms_per_call.train": TRAIN_CELLS,
        "replay_idle_share.train": TRAIN_CELLS,
        "input_wait_ms_per_event.infer": INFER_CELLS,

@@ -1,10 +1,22 @@
 """The frozen counts, pinned at hand-worked values and held to the
 program's own where it has them."""
 
+import json
+
 import pytest
 
 from gnn_fpga_tpu_torch.utils import flops as program_flops
-from port_bench import yardstick
+from port_bench import manifest, yardstick
+
+
+def _config(name: str) -> dict:
+    return json.loads((manifest.HERE / "configs" / f"{name}.json").read_text())
+
+
+def _forward_flops(name: str, n_node: float, n_edge: float) -> float:
+    """The forward count of configuration ``name``'s model family."""
+    cfg = _config(name)
+    return manifest.family(cfg["model"]).forward_flops(cfg, n_node, n_edge)
 
 
 def test_segment_classifier_step_of_the_event_cells():
@@ -13,7 +25,7 @@ def test_segment_classifier_step_of_the_event_cells():
     # 531,210,240; aggregation 4 e d = 47,672,064; input 2 v 2 h =
     # 4,055,040; forward 24,996,229,632; a step three forwards
     step = yardstick.train_step_flops(
-        yardstick.segment_classifier_flops(15_840, 180_576, 64, 6, 2))
+        _forward_flops("seg_h64i6", 15_840, 180_576))
     assert step == 74_988_688_896.0
 
 
@@ -23,7 +35,7 @@ def test_node_classifier_step_of_the_hit_cell():
     # aggregation 88,723,008; input 6,082,560; output 2 v d = 2,122,560;
     # forward 44,434,849,536
     step = yardstick.train_step_flops(
-        yardstick.node_classifier_flops(15_840, 331_056, 64, 7, 3))
+        _forward_flops("hit_h64i7", 15_840, 331_056))
     assert step == 133_304_548_608.0
 
 
@@ -47,6 +59,6 @@ def test_frozen_copy_agrees_with_the_program(name):
     for args in ((2, 15_848, 180_736, 66, 64), (4, 100, 1_000, 67, 64)):
         assert yardstick.kernel_work(name, *args) == \
             program_flops.kernel_work(name, *args)
-    assert yardstick.segment_classifier_flops(100, 1000, 64, 6, 2) == \
+    assert _forward_flops("seg_h64i6", 100, 1000) == \
         program_flops.segment_classifier_flops(100, 1000, 64, 6, 2)
     assert yardstick.PEAKS["NVIDIA H100 80GB HBM3"].bf16_tflops == 989.5

@@ -19,7 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from port_bench import gen, judge, program, readers, reference, yardstick
+from port_bench import (gen, judge, manifest, program, readers,
+                        reference, yardstick)
 
 
 # threads that build the pool: numpy and the plans' construction release
@@ -29,26 +30,29 @@ BUILD_THREADS = 4
 
 def build_pool(cfg: dict, mix: dict, seed: int) -> tuple:
     """``(events, host batches, weight seed)``: ``mix["pool"]`` events
-    from the seed, each in the route's layout, made by a few threads."""
+    from the seed and, in the route's layout, batches of
+    ``mix["events_per_batch"]`` (default 1) consecutive events, made by a
+    few threads."""
     rngs, wseed = gen.streams(seed, mix["pool"])
     ev_cfg = cfg["events"]
-
-    def one(rng):
-        ev = gen.make_event(ev_cfg, rng)
-        return ev, program.layout(ev, ev_cfg, mix)
+    per = mix.get("events_per_batch", 1)
+    if mix["pool"] % per:
+        raise ValueError(f"a pool of {mix['pool']} events does not split "
+                         f"into batches of {per}")
 
     with ThreadPoolExecutor(BUILD_THREADS) as ex:
-        built = list(ex.map(one, rngs))
-    events = [e for e, _ in built]
-    return events, program.one_signature([b for _, b in built]), wseed
+        events = list(ex.map(lambda rng: gen.make_event(ev_cfg, rng), rngs))
+        batches = list(ex.map(
+            lambda i: program.layout(events[i:i + per], ev_cfg, mix),
+            range(0, len(events), per)))
+    return events, program.one_signature(batches), wseed
 
 
 def useful_flops_per_step(cfg: dict, events: list) -> float:
     """A step's useful FLOPs, averaged over the pool (every event has the
     same sizes)."""
-    f = [yardstick.forward_flops(cfg["model"], ev.n_node, ev.n_edge,
-                                 cfg["hidden_dim"], cfg["n_iters"],
-                                 cfg["input_dim"]) for ev in events]
+    count = manifest.family(cfg["model"]).forward_flops
+    f = [count(cfg, ev.n_node, ev.n_edge) for ev in events]
     return yardstick.train_step_flops(sum(f) / len(f))
 
 
@@ -58,6 +62,8 @@ class Session:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         self.cfg, self.mix, self.device = cfg, mix, torch.device(device)
         k = mix["steps_per_call"]
+        if mix.get("events_per_batch", 1) != 1:
+            raise ValueError("a training mix takes one event a batch")
         t = time.perf_counter()
         self.events, batches, wseed = build_pool(cfg, mix, seed)
         t = readers.lap("events built", t)

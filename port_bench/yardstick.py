@@ -1,57 +1,17 @@
-"""Useful FLOPs, kernel bytes and the card's peaks: the benchmark's own
-frozen copies, so that the work counted stays the same whatever the
-program does later.
+"""The train step's FLOPs, kernel bytes and the card's peaks: the
+benchmark's own frozen copies, so that the work counted stays the same
+whatever the program does later.
 
-:func:`segment_classifier_flops`, :func:`train_step_flops`, the peaks and
-:func:`kernel_work` are copies of ``gnn_fpga_tpu_torch/utils/flops.py``
-(the SegmentClassifier count is the JAX package's arithmetic, float for
-float).  :func:`node_classifier_flops` is the benchmark's own: the
-program has no NodeClassifier count.
+:func:`train_step_flops`, the peaks and :func:`kernel_work` are copies of
+``gnn_fpga_tpu_torch/utils/flops.py``.  A forward's useful FLOPs are the
+model family's own frozen count (``families/<model>.py``:
+``forward_flops``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-
-def segment_classifier_flops(n_node: float, n_edge: float, hidden_dim: int,
-                             n_iters: int, input_dim: int = 2) -> float:
-    """Useful forward FLOPs of one SegmentClassifier application on
-    ``n_node`` and ``n_edge`` REAL (mask-summed) nodes and edges: 2 FLOPs
-    a multiply-add in every MLP matmul, 4 an edge and node width for the
-    two weighted aggregations; gathers count as bytes."""
-    v, e, h, d_in = float(n_node), float(n_edge), hidden_dim, input_dim
-    d = h + d_in
-    edge_mlp = 2 * e * h * (2 * d + 1)
-    node_mlp = 2 * v * h * (3 * d + h)
-    agg = 4 * e * d
-    input_mlp = 2 * v * d_in * h
-    return input_mlp + n_iters * (edge_mlp + agg + node_mlp) + edge_mlp
-
-
-def node_classifier_flops(n_node: float, n_edge: float, hidden_dim: int,
-                          n_iters: int, input_dim: int = 3) -> float:
-    """Useful forward FLOPs of one NodeClassifier application, counted as
-    :func:`segment_classifier_flops` counts: the input layer, ``n_iters``
-    edge networks, aggregations and node networks, and the ``d -> 1``
-    output layer on every real node (no final edge network)."""
-    v, e, h, d_in = float(n_node), float(n_edge), hidden_dim, input_dim
-    d = h + d_in
-    edge_mlp = 2 * e * h * (2 * d + 1)
-    node_mlp = 2 * v * h * (3 * d + h)
-    agg = 4 * e * d
-    input_mlp = 2 * v * d_in * h
-    output = 2 * v * d
-    return input_mlp + n_iters * (edge_mlp + agg + node_mlp) + output
-
-
-def forward_flops(model: str, n_node: float, n_edge: float, hidden_dim: int,
-                  n_iters: int, input_dim: int) -> float:
-    """Useful forward FLOPs of ``model`` (a configuration's ``model``)."""
-    count = {"segment_classifier": segment_classifier_flops,
-             "node_classifier": node_classifier_flops}[model]
-    return count(n_node, n_edge, hidden_dim, n_iters, input_dim)
 
 
 def train_step_flops(fwd_flops: float) -> float:
