@@ -130,7 +130,16 @@ it:
    (2 events a step, 2 epochs, no gate) with one fused step on its first
    batch checked against the sparse route, the window-cut
    probe's 256-step stack captured in one graph with its cost, and the
-   scaling harness's dp and partitioned modes at P = 1 over NCCL.
+   scaling harness's dp and partitioned modes at P = 1 over NCCL;
+16. ign: the Interaction Network's path (``models/interaction_gnn.py``)
+   at its published width (hidden 128, 8 iterations, 3 Linear-LayerNorm-
+   ReLU layers an MLP, bf16 over f32) on the packed fullevent graphs:
+   ``gather_pair``, ``gather_pair_bwd`` and ``edge_sum`` (forward and
+   backward) at H = 128 in f32 and bf16 against their plain versions,
+   ``edge_sum`` timed with its bound; then a captured
+   IGN_STEPS-step ``run_steps`` against one-step calls bit for bit, its
+   replay counted: 8 ``edge_sum``, 18 ``gather_pair`` and 10
+   ``gather_pair_bwd`` launches a step.
 
 The packed graphs' plans are padded to one capacity that holds all of
 them, as the train CLI pads a bucket's, so that the requests and steps of
@@ -154,7 +163,7 @@ three fused requests, three fused training steps, one blocked training
 step, three NodeClassifier training steps, one 32-step replay of the
 stacked step and three replayed partitioned (P = 1) and single-device
 steps to PATH.  ``--phase NAME`` (kernels, iteration, rows, stream or probes, on
-the first packed graph, prepare, parallel, scan or probe_steps;
+the first packed graph, prepare, parallel, scan, probe_steps or ign;
 repeatable) runs only those phases and prints no result line:
 copied into an older checkout, it measures that tree's kernels the same
 way.
@@ -210,6 +219,9 @@ KERNELS = {
                            "gnn_fpga_tpu/ops/pallas/spmm.py:1173"),
     "aggregate_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:806"),
     "gather_pair_bwd": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
+    # the Interaction Network's sum onto both ends: gather_pair_bwd's
+    # kernel, its halves added
+    "edge_sum": ("bwd", "gnn_fpga_tpu/ops/pallas/spmm.py:967"),
     "spmm": ("fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:408"),
     "sddmm": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:496"),
     "sddmm_dual": ("ops", "gnn_fpga_tpu/ops/pallas/spmm.py:563"),
@@ -307,6 +319,14 @@ BEFORE = {"prefetch 2": "46.297 / 72.325 ms",
          "pack_graphs": "4.584 / 9.721 ms", "infer": "2741.9 / 3079.0 us",
          "busy": "5.5% / 4.5% of a CLI epoch", "device": "2.540 ms",
          "idle": "78.6% (profiler on)"}
+
+
+# The ign phase: the Interaction Network at its published width (Ju et
+# al., arXiv:2103.16701) on the packed fullevent graphs, a captured
+# IGN_STEPS-step run_steps; a step launches edge_sum once an iteration,
+# gather_pair twice an iteration and twice more (encoder, head) and
+# gather_pair_bwd once an iteration and twice more.
+IGN_HIDDEN, IGN_ITERS, IGN_LAYERS, IGN_STEPS = 128, 8, 3, 4
 
 
 # The prepare phase: synthetic TrackML-format events at mu200 density
@@ -2800,6 +2820,89 @@ def padded_kernel_runs(g, gen) -> dict:
     return runs
 
 
+def phase_ign(device, graphs) -> tuple:
+    """The Interaction Network's path on the packed fullevent graphs:
+    kernels #6, #5 and ``edge_sum`` at H = IGN_HIDDEN against their plain
+    versions (``edge_sum``'s backward, one ``gather_pair_fwd``, bit for
+    bit), then a captured IGN_STEPS-step ``run_steps`` against one-step
+    calls (:func:`scan_check`), its replay's launches checked.  Returns
+    those launches and ``edge_sum``'s bf16 row of the kernels line."""
+    from gnn_fpga_tpu_torch.models import interaction_gnn as ign
+    from gnn_fpga_tpu_torch.ops.cuda import spmm
+    from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    g = graphs[0]
+    s, r, plans = g.senders, g.receivers, g.plans
+    gen = torch.Generator().manual_seed(4321)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(device)
+    tabs = dict(pa=rnd(N_NODE, IGN_HIDDEN), pb=rnd(N_NODE, IGN_HIDDEN),
+                g=rnd(N_EDGE, IGN_HIDDEN), gm=rnd(N_NODE, IGN_HIDDEN))
+    print(f"ign: V={N_NODE} E={N_EDGE} H={IGN_HIDDEN}", flush=True)
+    row = None
+    with uncounted():
+        for dt in (torch.float32, torch.bfloat16):
+            t = {k: v.to(dt) for k, v in tabs.items()}
+            tag = f"{str(dt).replace('torch.', '')} H={IGN_HIDDEN}"
+            hold(f"gather_pair {tag}",
+                 lambda: (spmm.gather_pair_fwd(t["pa"], t["pb"], s, r),),
+                 lambda: (spmm.gather_pair_reference(t["pa"], t["pb"], s,
+                                                     r),),
+                 ("out",), dt, exact_sides=True)
+            hold(f"gather_pair_bwd {tag}",
+                 lambda: spmm.gather_pair_bwd(t["g"], plans),
+                 lambda: spmm.gather_pair_bwd_reference(t["g"], s, r,
+                                                        N_NODE),
+                 ("dpa", "dpb"), dt)
+            e = t["g"].clone().requires_grad_(True)
+            m = spmm.edge_sum(e, s, r, plans)
+            (de,) = torch.autograd.grad(m, e, t["gm"])
+            want = spmm.edge_sum_reference(t["g"].double(), s.long(),
+                                           r.long(), N_NODE)
+            # in bf16 each half is rounded and then their sum, and the
+            # halves may cancel: atol relative to the largest entry
+            rtol, atol = KERNEL_TOL[dt]
+            err = compare(f"edge_sum {tag} m", m, want, rtol,
+                          max(atol, rtol * want.abs().max().item()))
+            exact(f"edge_sum {tag} backward", de,
+                  spmm.gather_pair_reference(t["gm"], t["gm"], s, r))
+            kern = lambda: spmm.edge_sum(t["g"], s, r, plans)
+            plain = lambda: spmm.edge_sum_reference(t["g"], s.long(),
+                                                    r.long(), N_NODE)
+            p1, k1, k2, p2 = (time_ms(f) for f in (plain, kern, kern, plain))
+            ms, plain_ms = device_ms(k1, k2), device_ms(p1, p2)
+            bound, by = bound_ms("edge_sum", dt, N_NODE, N_EDGE, IGN_HIDDEN,
+                                 IGN_HIDDEN)
+            print(f"  edge_sum {tag}: kernel {ms:.4f} ms ({fmt_ms(k1)}, "
+                  f"{fmt_ms(k2)}) plain {plain_ms:.4f} ms ({fmt_ms(p1)}, "
+                  f"{fmt_ms(p2)}), bound {bound:.4f} ms ({by})", flush=True)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=None,
+                       timer="cuda_graph", library_timer=None)
+    cfg = ign.InteractionGNNConfig(
+        input_dim=INPUT_DIM, hidden_dim=IGN_HIDDEN, n_iters=IGN_ITERS,
+        mlp_layers=IGN_LAYERS, compute_dtype=torch.bfloat16)
+    base = ign.init_interaction_gnn(cfg, torch.Generator().manual_seed(22),
+                                    device)
+    tcfg = TrainConfig(learning_rate=1e-3, pos_weight=POS_WEIGHT)
+    print(f"  InteractionGNN {IGN_HIDDEN}/{IGN_ITERS}/{IGN_LAYERS}, "
+          f"{sum(p.numel() for p in base.parameters())} parameters",
+          flush=True)
+    launches = scan_check(
+        f"InteractionGNN bf16, K = {IGN_STEPS}",
+        lambda: tuple(Trainer(variant_of(base, device), tcfg)
+                      for _ in range(2)),
+        graphs[:IGN_STEPS])["launches"]
+    want = expected_counts(edge_sum=IGN_ITERS * IGN_STEPS,
+                           gather_pair=(2 * IGN_ITERS + 2) * IGN_STEPS,
+                           gather_pair_bwd=(IGN_ITERS + 2) * IGN_STEPS)
+    print(f"  [{card()}] launches of one {IGN_STEPS}-step replay: "
+          f"{launches}", flush=True)
+    if launches != want:
+        fail(f"ign: the {IGN_STEPS}-step replay launched {launches}, "
+             f"expected {want}")
+    return launches, row
+
+
 def phase_capture(device, graphs, unpadded) -> None:
     """The captured paths against the eager ones: CAPTURE_STEPS train
     steps from one init on the fused, unfused and blocked routes (losses
@@ -3879,10 +3982,11 @@ def main():
                     help="also write torch.profiler tables to PATH")
     ap.add_argument("--phase", action="append",
                     choices=tuple(MEASUREMENTS) + ("prepare", "parallel",
-                                                   "scan", "probe_steps"),
+                                                   "scan", "probe_steps",
+                                                   "ign"),
                     help="run only this phase (a measurement phase on the "
-                         "first packed graph, prepare, parallel, scan or "
-                         "probe_steps; repeatable): no result line")
+                         "first packed graph, prepare, parallel, scan, "
+                         "probe_steps or ign; repeatable): no result line")
     args = ap.parse_args()
     kind = phase_device()
     device = torch.device("cuda", 0)
@@ -3890,14 +3994,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     if args.phase:
-        own = {"prepare", "parallel", "scan", "probe_steps"}
+        own = {"prepare", "parallel", "scan", "probe_steps", "ign"}
         g = make_request(0, device) if set(args.phase) - own else None
         for name in args.phase:
             unpadded = [make_request(seed, device)
                         for seed in range(N_REQUESTS)] \
-                if name in ("parallel", "scan") else None
+                if name in ("parallel", "scan", "ign") else None
             if name == "prepare":
                 phase_prepare(device)
+            elif name == "ign":
+                phase_ign(device, pad_to_covering(unpadded))
             elif name == "probe_steps":
                 phase_probe_steps(device)
             elif name == "parallel":
@@ -3927,6 +4033,9 @@ def main():
              phase_unshared(device, graphs, args.profile),
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
+    ign_launches, kernels[("edge_sum", torch.bfloat16)] = \
+        phase_ign(device, graphs)
+    paths += (ign_launches,)
     phase_capture(device, graphs, unpadded)
     paths += (phase_scan(device, unpadded, args.profile),
               phase_parallel(device, graphs, unpadded, args.profile))

@@ -16,7 +16,11 @@ run on the card as hand-written CUDA kernels:
 - :func:`gather_pair` is the edge MLP's first layer in projection form,
   ``pa[s] + pb[r]`` (the final edge layer, and every unfused iteration);
   its forward is :func:`gather_pair_fwd` (``csrc/gather.cu``), a row
-  gather in edge order that needs no plan.
+  gather in edge order that needs no plan;
+- :func:`edge_sum` sums edge rows onto both their ends, ``m[n] =
+  sum_{r==n} e + sum_{s==n} e`` (the Interaction Network's aggregation):
+  the kernel of :func:`gather_pair_bwd` and one add forward,
+  :func:`gather_pair_fwd` backward.
 
 Each is a ``torch.autograd.Function`` whose backward is a kernel too:
 :func:`iteration_pair_bwd` (``csrc/iteration_bwd.cu``),
@@ -818,6 +822,14 @@ def gather_pair_bwd_reference(g, senders, receivers, n_node):
     return segment_sum(g, senders, n_node), segment_sum(g, receivers, n_node)
 
 
+def edge_sum_reference(e, senders, receivers, n_node):
+    """``m[n] = sum_{receivers==n} e + sum_{senders==n} e`` by
+    ``index_add``, in f32 (f64 for f64 rows)."""
+    e = e.to(torch.promote_types(e.dtype, torch.float32))
+    out = e.new_zeros((n_node, e.shape[1]))
+    return out.index_add_(0, receivers, e).index_add_(0, senders, e)
+
+
 def spmm_reference(h, w, seg_ids, oth_ids, n_node):
     """``out[n] = sum_{seg[e]==n} w[e] * h[oth[e]]`` in f32."""
     return segment_sum(h.float().index_select(0, oth_ids) * w.float()[:, None],
@@ -1154,10 +1166,20 @@ def gather_pair_bwd(g, plans: AggPlans):
                                              r.sorted_oth, r.sorted_seg,
                                              n_node)
         return dpa.to(g.dtype), dpb.to(g.dtype)
+    out = _segment_rows_pair(g, plans, dev, "gather_pair_bwd")
+    gather_pair_bwd.launches += 1
+    return out
+
+
+def _segment_rows_pair(g, plans: AggPlans, dev, name):
+    """``csrc/spmm_bwd.cu``'s ``gnn_gather_pair_bwd`` on checked CUDA
+    operands, uncounted: ``(sum_{s==n} g, sum_{r==n} g)`` [V, H] in
+    ``g.dtype``."""
+    n_node = plans.recv.n_node
     if g.ndim != 2 or g.shape[0] != plans.recv.n_edge:
-        raise ValueError("gather_pair_bwd: g must be [E, H]")
+        raise ValueError(f"{name}: g must be [E, H]")
     hdim = g.shape[1]
-    _check_widths("gather_pair_bwd", hdim)
+    _check_widths(name, hdim)
     _check_cuda(dev, g.dtype, g=g)
     _check_plans(plans, dev, n_node)
     dpa = torch.empty((n_node, hdim), dtype=g.dtype, device=dev)
@@ -1170,8 +1192,20 @@ def gather_pair_bwd(g, plans: AggPlans):
                              _ptr(p.long_seg), len(p.long_seg))),
         _ptr(dpa), _ptr(dpb), _stream(g))
     _raise_on_error(code, "gnn_gather_pair_bwd")
-    gather_pair_bwd.launches += 1
     return dpa, dpb
+
+
+def _edge_sum_fwd(e, senders, receivers, plans: AggPlans):
+    """:func:`edge_sum`'s forward, no VJP attached: one launch of
+    :func:`gather_pair_bwd`'s kernel, its two halves added (counted in
+    ``edge_sum.launches``); the plain version on CPU tensors."""
+    dev = _kernel_device(e, "edge_sum")
+    if dev is None:
+        return edge_sum_reference(e, senders, receivers,
+                                  plans.recv.n_node).to(e.dtype)
+    by_send, by_recv = _segment_rows_pair(e, plans, dev, "edge_sum")
+    edge_sum.launches += 1
+    return by_send.add_(by_recv)
 
 
 def spmm_raw(h, w, plan: EdgePlan):
@@ -1306,6 +1340,20 @@ class _GatherPair(torch.autograd.Function):
         return dpa, dpb.to(ctx.dtypes[1]), None, None, None
 
 
+class _EdgeSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, senders, receivers, plans):
+        ctx.dtype = e.dtype
+        ctx.save_for_backward(senders, receivers)
+        return _edge_sum_fwd(e, senders, receivers, plans)
+
+    @staticmethod
+    def backward(ctx, g):
+        senders, receivers = ctx.saved_tensors
+        g = _grad_as(g, ctx.dtype)
+        return gather_pair_fwd(g, g, senders, receivers), None, None, None
+
+
 class _Spmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, plan, plan_t):
@@ -1374,6 +1422,22 @@ def gather_pair(pa, pb, senders, receivers, plans: AggPlans):
     return _GatherPair.apply(pa, pb, senders, receivers, plans)
 
 
+def edge_sum(e, senders, receivers, plans: AggPlans):
+    """``m[n] = sum_{receivers[k]==n} e[k] + sum_{senders[k]==n} e[k]``
+    [V, H] in ``e.dtype``: edge rows ``e`` [E, H] in EDGE order summed
+    onto both their ends (pad edges too: mask them, or keep them on a pad
+    node).  The forward is one
+    launch of :func:`gather_pair_bwd`'s kernel, whose two halves are
+    added; the backward, ``g[s] + g[r]``, is one :func:`gather_pair_fwd`
+    launch."""
+    dev = _kernel_device(e, "edge_sum")
+    if dev is not None and (senders.shape != (plans.recv.n_edge,)
+                            or receivers.shape != senders.shape):
+        raise ValueError("edge_sum: senders, receivers and plans differ in "
+                         "their edge count")
+    return _EdgeSum.apply(e, senders, receivers, plans)
+
+
 def spmm(h, w, plan: EdgePlan, plan_t: EdgePlan):
     """Single-direction differentiable SpMM, :func:`spmm_raw` over
     ``plan``; ``plan_t`` is its transpose (for a graph's
@@ -1392,6 +1456,7 @@ gather_pair.launches = 0
 iteration_pair_bwd.launches = 0
 aggregate_pair_bwd.launches = 0
 gather_pair_bwd.launches = 0
+edge_sum.launches = 0
 spmm.launches = 0
 sddmm.launches = 0
 sddmm_dual.launches = 0
@@ -1415,8 +1480,9 @@ def _kernel_wrappers() -> tuple:
     from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
 
     return (iteration_pair, aggregate_pair, gather_pair, iteration_pair_bwd,
-            aggregate_pair_bwd, gather_pair_bwd, spmm, sddmm, sddmm_dual,
-            sorted_segment_sum, select_segments) + tuple(_REGISTERED_WRAPPERS)
+            aggregate_pair_bwd, gather_pair_bwd, edge_sum, spmm, sddmm,
+            sddmm_dual, sorted_segment_sum,
+            select_segments) + tuple(_REGISTERED_WRAPPERS)
 
 
 def launch_counts() -> dict:

@@ -170,6 +170,10 @@ def kernel_work(name: str, dtype_bytes: int, v: int, e: int, d: int,
         "aggregate_pair_bwd": (4 * tab(d) + 2 * ev + ids, 8 * e * d),
         "gather_pair_bwd": (e * hdim * dtype_bytes + ids + 2 * tab(hdim),
                             2 * e * hdim),
+        # gather_pair_bwd's kernel, then its two halves read and their
+        # sum written
+        "edge_sum": (e * hdim * dtype_bytes + ids + 5 * tab(hdim),
+                     2 * e * hdim + v * hdim),
         "spmm": (2 * tab(d) + ev + ids, 2 * e * d),
         "sddmm": (2 * tab(d) + ids + ev, 2 * e * d),
         "sddmm_dual": (4 * tab(d) + ids + ev, 4 * e * d),

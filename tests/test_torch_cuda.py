@@ -1963,3 +1963,80 @@ def test_timed_counts_the_replays_it_launches_and_not_the_capture(dev):
     counts = tsp.launch_counts()
     assert counts["aggregate_pair"] == 3 + (1 + 2) * 3
     assert sum(counts.values()) == counts["aggregate_pair"]
+
+
+# ---------------------------------------------------------------------------
+# The Interaction Network's sum onto both ends (edge_sum) and its training
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hdim", [16, 67, 128])
+def test_edge_sum_matches_plain_on_the_card(dev, dtype, hdim):
+    """``edge_sum`` forward (``gather_pair_bwd``'s kernel, its halves
+    added) against the f64 ``index_add``, and its backward (one
+    ``gather_pair`` launch) against the plain gather bit for bit.  In
+    bf16 each half is rounded and then their sum, and the halves may
+    cancel: atol relative to the largest entry."""
+    c = _case(43, 300, 2001, 8, hdim, dev, dtype)
+    rng = np.random.default_rng(hdim)
+    e = torch.from_numpy(rng.standard_normal((2001, hdim)).astype(
+        np.float32)).to(dev, dtype).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((300, hdim)).astype(
+        np.float32)).to(dev, dtype)
+    n0 = tsp.launch_counts()
+    m = tsp.edge_sum(e, c["s"], c["r"], c["plans"])
+    (de,) = torch.autograd.grad(m, e, g)
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "edge_sum": 1, "gather_pair": 1}
+    want = tsp.edge_sum_reference(e.detach().double(), c["s"].long(),
+                                  c["r"].long(), 300)
+    assert m.dtype == dtype and m.shape == (300, hdim)
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        m.double(), want, rtol=tol["rtol"],
+        atol=max(tol["atol"], tol["rtol"] * float(want.abs().max())))
+    assert torch.equal(de, tsp.gather_pair_reference(g, g, c["s"], c["r"]))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_interaction_gnn_captured_run_steps_match_eager(dev, dtype):
+    """Two ``run_steps`` calls on a stack of 3 composed batches, the
+    first eager and captured and the second one replay, against the same
+    calls dispatched op by op (``capture=False``): losses and weights at
+    rtol 1e-5, the same launches, ``n_iters`` sums a step."""
+    from gnn_fpga_tpu_torch.models import interaction_gnn as ign
+    from gnn_fpga_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                  stack_batches)
+
+    batches = _composed_batches(dev, 3, seed=9)
+    base = ign.init_interaction_gnn(
+        ign.InteractionGNNConfig(hidden_dim=128, n_iters=2, mlp_layers=3,
+                                 compute_dtype=dtype),
+        torch.Generator().manual_seed(5), dev)
+    cfg = TrainConfig(learning_rate=3e-3, pos_weight=8.0,
+                      lr_schedule="cosine", decay_steps=6)
+    stack = stack_batches(batches)
+    runs = {}
+    for capture in (True, False):
+        model = ign.InteractionGNN(base.cfg, torch.Generator(), dev)
+        model.load_state_dict(base.state_dict())
+        tr = Trainer(model, cfg, capture=capture)
+        first = tr.run_steps(stack)
+        tsp.reset_launch_counts()
+        second, replays = _count_replays(lambda: tr.run_steps(stack))
+        runs[capture] = (np.concatenate([first, second]),
+                         tsp.launch_counts(),
+                         [p.detach().clone() for p in model.parameters()])
+        assert replays == capture
+    (got, got_n, got_w), (want, want_n, want_w) = runs[True], runs[False]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got_n == want_n
+    k, n = 3, 2
+    assert {key: v for key, v in got_n.items() if v} == {
+        "edge_sum": k * n, "gather_pair": k * (2 * n + 2),
+        "gather_pair_bwd": k * (n + 2)}
+    for a, b in zip(got_w, want_w):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -86,6 +86,16 @@ def test_kernel_work_gives_the_kernel_tables_bounds():
         E * (6 * HID + 4 * D + 4)
 
 
+def test_edge_sum_work_is_the_bwd_kernels_and_the_add():
+    """``edge_sum`` at the Interaction Network's width: #5's bytes and
+    operations, then its two ``[V, H]`` halves read and their sum written
+    (one add a node and column)."""
+    h = 128
+    kern = tflops.kernel_work("gather_pair_bwd", 2, V, E, h, h)
+    got = tflops.kernel_work("edge_sum", 2, V, E, h, h)
+    assert got == (kern[0] + 3 * V * h * 2, kern[1] + V * h)
+
+
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
 def test_fused_step_cost_sums_its_launches(dtype_bytes):
     """At the fullevent shapes: the f32 operations and kernel bytes are

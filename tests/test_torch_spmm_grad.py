@@ -208,10 +208,14 @@ def test_bwd_wrappers_do_not_count_on_cpu():
     out = tsp.gather_pair(a["pa"], a["pb"], torch.from_numpy(c["s"]),
                           torch.from_numpy(c["r"]), plans)
     out.sum().backward()
+    m = tsp.edge_sum(out.detach().requires_grad_(), torch.from_numpy(c["s"]),
+                     torch.from_numpy(c["r"]), plans)
+    m.sum().backward()
     assert tsp.launch_counts() == before
     assert set(before) == {"iteration_pair", "aggregate_pair", "gather_pair",
                            "iteration_pair_bwd", "aggregate_pair_bwd",
-                           "gather_pair_bwd", "spmm", "sddmm", "sddmm_dual",
+                           "gather_pair_bwd", "edge_sum", "spmm", "sddmm",
+                           "sddmm_dual",
                            "sorted_segment_sum", "select_segments",
                            "passthrough", "gather_rows", "ablate_rows",
                            "iteration_pair_bwd_recompute"}

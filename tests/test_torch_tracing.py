@@ -202,3 +202,31 @@ def test_traced_run_steps_equals_untraced():
     for (k, p), q in zip(traced.model.named_parameters(),
                          plain.model.parameters()):
         torch.testing.assert_close(p, q, rtol=0, atol=0, msg=k)
+
+
+def test_interaction_gnn_forward_is_encode_messages_head():
+    """The Interaction Network's forward is the spans ``gnn.ign.encode``,
+    one ``gnn.ign.message`` an iteration and ``gnn.ign.head``, in order;
+    its sum onto both ends is counted in ``launch_counts`` (on the CPU
+    it launches nothing); tracing changes no logit."""
+    from gnn_fpga_tpu_torch.models import interaction_gnn as ign
+
+    g = tg.attach_plans(tg.pack_graphs(tg.unbatch_graphs(
+        toy2d.make_knn_segment_graphs(
+            toy2d.Toy2DConfig(n_layers=5, n_tracks=3), 2, k=3))))
+    model = ign.init_interaction_gnn(
+        ign.InteractionGNNConfig(hidden_dim=8, n_iters=3, mlp_layers=2),
+        torch.Generator().manual_seed(0), "cpu")
+    tsp.reset_launch_counts()
+    with torch.no_grad():
+        want = model(g)
+        with _cpu_profile() as prof:
+            got = model(g)
+    spans = _spans(prof)
+    assert [n for _, _, n in spans] == (["gnn.ign.encode"]
+                                        + ["gnn.ign.message"] * 3
+                                        + ["gnn.ign.head"])
+    for (_, end, _), (start, _, _) in zip(spans, spans[1:]):
+        assert end <= start
+    assert tsp.launch_counts()["edge_sum"] == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
