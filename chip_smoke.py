@@ -136,10 +136,15 @@ it:
    ReLU layers an MLP, bf16 over f32) on the packed fullevent graphs:
    ``gather_pair``, ``gather_pair_bwd`` and ``edge_sum`` (forward and
    backward) at H = 128 in f32 and bf16 against their plain versions,
-   ``edge_sum`` timed with its bound; then a captured
-   IGN_STEPS-step ``run_steps`` against one-step calls bit for bit, its
-   replay counted: 8 ``edge_sum``, 18 ``gather_pair`` and 10
-   ``gather_pair_bwd`` launches a step.
+   ``edge_sum`` timed with its bound; the fused hidden layer
+   ``layer_norm_relu`` and its backward on the edge and the node rows in
+   f32 and bf16 against ``layer_norm_relu_reference`` and its autograd,
+   twice bit for bit, each way timed with its bound and beside
+   ``F.layer_norm`` + ``F.relu`` (and their autograd and the bias's
+   column sum); then a captured IGN_STEPS-step ``run_steps`` against
+   one-step calls bit for bit, its replay counted: 8 ``edge_sum``, 18
+   ``gather_pair``, 10 ``gather_pair_bwd`` and 57 ``layer_norm_relu``
+   launches a step each way.
 
 The packed graphs' plans are padded to one capacity that holds all of
 them, as the train CLI pads a bucket's, so that the requests and steps of
@@ -209,7 +214,8 @@ SOURCES = {"fwd": "gnn_fpga_tpu_torch/csrc/spmm.cu",
            "iter_fwd": "gnn_fpga_tpu_torch/csrc/iteration_fwd.cu",
            "iter_bwd": "gnn_fpga_tpu_torch/csrc/iteration_bwd.cu",
            "doublets": "gnn_fpga_tpu_torch/csrc/doublets.cu",
-           "probes": "gnn_fpga_tpu_torch/csrc/probes.cu"}
+           "probes": "gnn_fpga_tpu_torch/csrc/probes.cu",
+           "layer_norm": "gnn_fpga_tpu_torch/csrc/layer_norm.cu"}
 # kernel -> (source, line of the Pallas kernel body it replaces)
 KERNELS = {
     "iteration_pair": ("iter_fwd", "gnn_fpga_tpu/ops/pallas/spmm.py:1134"),
@@ -236,6 +242,10 @@ KERNELS = {
     "ablate_rows": ("probes", "benchmarks/probe_spmm_ablate.py:25"),
     "iteration_pair_bwd_recompute": ("iter_bwd",
                                      "benchmarks/probe_iter.py:34"),
+    # the Interaction Network's hidden layers (bias, LayerNorm, ReLU): no
+    # Pallas kernel, the JAX package has no Interaction Network
+    "layer_norm_relu": ("layer_norm", "none"),
+    "layer_norm_relu_bwd": ("layer_norm", "none"),
 }
 # A kernel that stands for a second TPU kernel too.
 ALSO_REPLACES = {"passthrough": "benchmarks/probe_ops.py:123"}
@@ -324,9 +334,12 @@ BEFORE = {"prefetch 2": "46.297 / 72.325 ms",
 # The ign phase: the Interaction Network at its published width (Ju et
 # al., arXiv:2103.16701) on the packed fullevent graphs, a captured
 # IGN_STEPS-step run_steps; a step launches edge_sum once an iteration,
-# gather_pair twice an iteration and twice more (encoder, head) and
-# gather_pair_bwd once an iteration and twice more.
+# gather_pair twice an iteration and twice more (encoder, head),
+# gather_pair_bwd once an iteration and twice more, and layer_norm_relu
+# and its backward once a hidden layer of the five MLPs (the two encoders,
+# the node and edge networks each iteration, the head).
 IGN_HIDDEN, IGN_ITERS, IGN_LAYERS, IGN_STEPS = 128, 8, 3, 4
+IGN_HIDDEN_LAYERS = IGN_LAYERS * (2 * IGN_ITERS + 3)     # 57
 
 
 # The prepare phase: synthetic TrackML-format events at mu200 density
@@ -2820,13 +2833,126 @@ def padded_kernel_runs(g, gen) -> dict:
     return runs
 
 
+def layer_norm_relu_inputs(device, rows, dt, gen) -> dict:
+    """The fused hidden layer's operands at H = IGN_HIDDEN: rows ~ N(0,
+    1), a bias ~ N(0, 1) / 4, a scale and a shift U(-1, 1) as the
+    Interaction Network draws them, an output gradient ~ N(0, 1)."""
+    h = IGN_HIDDEN
+    n = lambda *shape: torch.randn(*shape, generator=gen).to(device, dt)
+    u = lambda *shape: (torch.rand(*shape, generator=gen) * 2 - 1).to(
+        device, dt)
+    return dict(y=n(rows, h), b=n(h) / 4, g=u(h), beta=u(h), dz=n(rows, h))
+
+
+def check_layer_norm_relu(device) -> dict:
+    """``layer_norm_relu`` and its backward on the edge and the node rows
+    in f32 and bf16 against ``layer_norm_relu_reference`` and its
+    autograd in f64 (the kernels' ReLU mask, so that a value within f32
+    rounding of 0 does not flip one element; the output compared on its
+    own): the output and ``dy`` at KERNEL_TOL, the column sums at
+    PARAM_SUM_ATOL of their largest entry; twice bit for bit; each way
+    timed (CUDA-graph replays) with its bound, its plain version (the
+    reference, and its autograd) and the library's ``F.layer_norm`` +
+    ``F.relu`` (and their autograd with the bias's column sum).  Returns
+    the bf16 edge-row rows of the kernels line."""
+    import torch.nn.functional as F
+
+    from gnn_fpga_tpu_torch.models.interaction_gnn import LAYER_NORM_EPS
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm as ln
+
+    eps, h = LAYER_NORM_EPS, IGN_HIDDEN
+    gen = torch.Generator().manual_seed(2323)
+    rows_out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for rows in (N_EDGE, N_NODE):
+            t = layer_norm_relu_inputs(device, rows, dt, gen)
+            args = (t["y"], t["b"], t["g"], t["beta"])
+            tag = f"{str(dt).replace('torch.', '')} rows={rows} H={h}"
+            fwd = lambda: ln.layer_norm_relu_fwd(*args, eps)
+            out, mean, rstd = fwd()
+            bwd = lambda: ln.layer_norm_relu_bwd(t["dz"], *args, mean, rstd)
+            grads = bwd()
+            again = fwd() + bwd()
+            torch.cuda.synchronize()
+            exact(f"layer_norm_relu {tag} twice",
+                  torch.cat([x.reshape(-1).float() for x in again]),
+                  torch.cat([x.reshape(-1).float()
+                             for x in (out, mean, rstd) + grads]))
+            f64 = lambda x: x.double()
+            want = ln.layer_norm_relu_reference(*map(f64, args), eps)
+            rtol, atol = KERNEL_TOL[dt]
+            err_f = compare(f"layer_norm_relu {tag} out", out, want, rtol,
+                            atol)
+            ref = ln.layer_norm_relu_bwd_reference(t["dz"], *args, eps,
+                                                   live=out > 0)
+            err_b = 0.0
+            for side, got, w in zip(("dy", "db", "dg", "dbeta"), grads, ref):
+                a = atol if side == "dy" else \
+                    PARAM_SUM_ATOL[dt] * w.abs().max().item()
+                err_b = max(err_b, compare(f"layer_norm_relu_bwd {tag} "
+                                           f"{side}", got, w, rtol, a))
+            # the mask the backward recomputes is the forward's: with dz
+            # all ones the shift's gradient counts the live outputs
+            # (integer sums in f32, rounded once)
+            exact(f"layer_norm_relu_bwd {tag} mask",
+                  ln.layer_norm_relu_bwd(torch.ones_like(out), *args, mean,
+                                         rstd)[3],
+                  (out > 0).sum(0).float().to(dt))
+            # the plain versions and the library's layer, its bias added
+            # by the preceding Linear; a backward is timed with its
+            # forward (the autograd graph built inside the capture) and
+            # the forward's time taken off
+            ref_leaves = [x.clone().requires_grad_(True) for x in args]
+            lib_leaves = [(t["y"] + t["b"]).requires_grad_(True)] + [
+                x.clone().requires_grad_(True) for x in args[2:]]
+            plain_f = lambda: ln.layer_norm_relu_reference(*args, eps)
+            lib_f = lambda: F.relu(F.layer_norm(t["y"], (h,), t["g"],
+                                                t["beta"], eps))
+            plain_fb = lambda: torch.autograd.grad(
+                ln.layer_norm_relu_reference(*ref_leaves, eps), ref_leaves,
+                t["dz"])
+
+            def lib_fb():
+                yb, gl, bl = lib_leaves
+                dyl, dgl, dbl = torch.autograd.grad(
+                    F.relu(F.layer_norm(yb, (h,), gl, bl, eps)), lib_leaves,
+                    t["dz"])
+                return dyl.sum(0), dgl, dbl
+
+            fwd_plain = fwd_lib = 0.0
+            for name, kern, plain, lib, err in (
+                    ("layer_norm_relu", fwd, plain_f, lib_f, err_f),
+                    ("layer_norm_relu_bwd", bwd, plain_fb, lib_fb, err_b)):
+                p1, k1, k2, p2 = (time_ms(f)
+                                  for f in (plain, kern, kern, plain))
+                ms = device_ms(k1, k2)
+                plain_ms = device_ms(p1, p2) - fwd_plain
+                lib_ms, lib_timer = library_ms(lib)
+                lib_ms -= fwd_lib
+                if name == "layer_norm_relu":
+                    fwd_plain, fwd_lib = plain_ms, lib_ms
+                bound, by = bound_ms(name, dt, N_NODE, rows, h, h)
+                print(f"  {name} {tag}: kernel {ms:.4f} ms ({fmt_ms(k1)}, "
+                      f"{fmt_ms(k2)}) plain {plain_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms ({lib_timer}), bound {bound:.4f} ms "
+                      f"({by}, {100 * bound / ms:.1f}% of it)", flush=True)
+                if dt == torch.bfloat16 and rows == N_EDGE:
+                    rows_out[name] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                        timer="cuda_graph", library_timer=lib_timer)
+    return rows_out
+
+
 def phase_ign(device, graphs) -> tuple:
     """The Interaction Network's path on the packed fullevent graphs:
     kernels #6, #5 and ``edge_sum`` at H = IGN_HIDDEN against their plain
     versions (``edge_sum``'s backward, one ``gather_pair_fwd``, bit for
-    bit), then a captured IGN_STEPS-step ``run_steps`` against one-step
-    calls (:func:`scan_check`), its replay's launches checked.  Returns
-    those launches and ``edge_sum``'s bf16 row of the kernels line."""
+    bit), the fused hidden layer (:func:`check_layer_norm_relu`), then a
+    captured IGN_STEPS-step ``run_steps`` against one-step calls
+    (:func:`scan_check`), its replay's launches checked.  Returns those
+    launches and the kernels line's bf16 rows of ``edge_sum``,
+    ``layer_norm_relu`` and ``layer_norm_relu_bwd``."""
     from gnn_fpga_tpu_torch.models import interaction_gnn as ign
     from gnn_fpga_tpu_torch.ops.cuda import spmm
     from gnn_fpga_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -2878,6 +3004,7 @@ def phase_ign(device, graphs) -> tuple:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=None,
                        timer="cuda_graph", library_timer=None)
+        rows = dict(check_layer_norm_relu(device), edge_sum=row)
     cfg = ign.InteractionGNNConfig(
         input_dim=INPUT_DIM, hidden_dim=IGN_HIDDEN, n_iters=IGN_ITERS,
         mlp_layers=IGN_LAYERS, compute_dtype=torch.bfloat16)
@@ -2894,13 +3021,15 @@ def phase_ign(device, graphs) -> tuple:
         graphs[:IGN_STEPS])["launches"]
     want = expected_counts(edge_sum=IGN_ITERS * IGN_STEPS,
                            gather_pair=(2 * IGN_ITERS + 2) * IGN_STEPS,
-                           gather_pair_bwd=(IGN_ITERS + 2) * IGN_STEPS)
+                           gather_pair_bwd=(IGN_ITERS + 2) * IGN_STEPS,
+                           layer_norm_relu=IGN_HIDDEN_LAYERS * IGN_STEPS,
+                           layer_norm_relu_bwd=IGN_HIDDEN_LAYERS * IGN_STEPS)
     print(f"  [{card()}] launches of one {IGN_STEPS}-step replay: "
           f"{launches}", flush=True)
     if launches != want:
         fail(f"ign: the {IGN_STEPS}-step replay launched {launches}, "
              f"expected {want}")
-    return launches, row
+    return launches, rows
 
 
 def phase_capture(device, graphs, unpadded) -> None:
@@ -4033,8 +4162,8 @@ def main():
              phase_unshared(device, graphs, args.profile),
              phase_node(device, args.profile), phase_cli(device),
              phase_gcn(device))
-    ign_launches, kernels[("edge_sum", torch.bfloat16)] = \
-        phase_ign(device, graphs)
+    ign_launches, ign_rows = phase_ign(device, graphs)
+    kernels.update({(name, torch.bfloat16): r for name, r in ign_rows.items()})
     paths += (ign_launches,)
     phase_capture(device, graphs, unpadded)
     paths += (phase_scan(device, unpadded, args.profile),

@@ -53,6 +53,8 @@ from torch import nn
 from gnn_fpga_tpu_torch.core.device import default_device
 from gnn_fpga_tpu_torch.core.graph import Graph
 from gnn_fpga_tpu_torch.ops.cuda import spmm
+from gnn_fpga_tpu_torch.ops.cuda.layer_norm import (layer_norm_relu,
+                                                    linear_layer_norm_relu)
 from gnn_fpga_tpu_torch.utils.profiling import span
 
 LAYER_NORM_EPS = 1e-5     # nn.LayerNorm's default, as the reference code
@@ -148,12 +150,17 @@ def _layers(seq: nn.Sequential, cast) -> tuple:
 
 def _run_mlp(layers, x=None, first=None):
     """The hidden layers on ``x``, or with ``first`` given (the first
-    Linear's output, already computed) from there; then the last Linear
-    if the MLP has one."""
+    Linear's output, its bias added, already computed) from there; then
+    the last Linear if the MLP has one.  Each hidden layer is
+    :func:`~gnn_fpga_tpu_torch.ops.cuda.layer_norm.linear_layer_norm_relu`
+    (on the card the bias-free product and the fused kernels, which add
+    the bias and sum its gradient)."""
     hidden, out = layers
     for i, (w, b, g, beta) in enumerate(hidden):
-        y = first if i == 0 and first is not None else F.linear(x, w, b)
-        x = F.relu(F.layer_norm(y, y.shape[-1:], g, beta, LAYER_NORM_EPS))
+        if i == 0 and first is not None:
+            x = layer_norm_relu(first, None, g, beta, LAYER_NORM_EPS)
+        else:
+            x = linear_layer_norm_relu(x, w, b, g, beta, LAYER_NORM_EPS)
     return x if out is None else F.linear(x, *out)
 
 

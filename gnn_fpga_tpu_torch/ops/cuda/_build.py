@@ -52,6 +52,8 @@ _SIGNATURES = {
     "gnn_passthrough": ([_I, _L, _I] + [_P] * 3, _I),
     "gnn_gather_rows": ([_I] * 4 + [_P] * 4, _I),
     "gnn_ablate_rows": ([_I] * 7 + [_P] * 6 + [_I] + [_P] * 2, _I),
+    "gnn_layer_norm_relu_fwd": ([_I, _L, _I, _D] + [_P] * 8, _I),
+    "gnn_layer_norm_relu_bwd": ([_I, _L, _I] + [_P] * 13, _I),
 }
 
 

@@ -154,9 +154,17 @@ def kernel_work(name: str, dtype_bytes: int, v: int, e: int, d: int,
     ``ops/cuda/probes.py::ABLATE_GROUP`` sorted edges; ``ids_only`` two
     f32 a group);
     ``ablate_aligned`` is ``ablate_full`` on rows padded to a 16-byte
-    pitch."""
+    pitch.
+
+    ``layer_norm_relu`` and ``layer_norm_relu_bwd``
+    (``ops/cuda/layer_norm.py``) take ``e`` rows of ``hdim``: the forward
+    reads the rows, the bias, the scale and the shift and writes its
+    output and each row's f32 mean and rstd; the backward reads the
+    output's gradient, the rows, the statistics and the three parameters
+    and writes ``dy`` and the three column sums."""
     tab = lambda w: v * w * dtype_bytes
     ids, ev = 8 * e, 4 * e
+    rows, par = e * hdim * dtype_bytes, hdim * dtype_bytes
     if name.startswith("ablate_"):
         return _ablation_work(name[len("ablate_"):], dtype_bytes, v, e, d)
     return {
@@ -180,6 +188,13 @@ def kernel_work(name: str, dtype_bytes: int, v: int, e: int, d: int,
         "sorted_segment_sum": (e * d * dtype_bytes + 4 * (v + 1) + tab(d),
                                e * d),
         "passthrough": (2 * e * d * dtype_bytes, e * d),
+        # a value: the bias add, the statistics' two passes, the
+        # normalisation, the scale and shift, the ReLU
+        "layer_norm_relu": (2 * rows + 3 * par + 8 * e, 10 * e * hdim),
+        # a value: the forward's value again, the mask, the two row sums,
+        # dy, the three column sums
+        "layer_norm_relu_bwd": (3 * rows + 8 * e + 6 * par,
+                                19 * e * hdim),
         "gather_rows": (4 * e + tab(d) + e * d * dtype_bytes, 0),
         "iteration_pair_bwd_stashed": (
             4 * tab(hdim) + 4 * tab(d) + 2 * ev + ids + 2 * hdim * dtype_bytes,

@@ -2034,9 +2034,206 @@ def test_interaction_gnn_captured_run_steps_match_eager(dev, dtype):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert got_n == want_n
-    k, n = 3, 2
+    k, n, layers = 3, 2, 3
+    # every hidden layer of the five MLPs is one layer_norm_relu a way
+    hidden = layers * (2 * n + 3)
     assert {key: v for key, v in got_n.items() if v} == {
         "edge_sum": k * n, "gather_pair": k * (2 * n + 2),
-        "gather_pair_bwd": k * (n + 2)}
+        "gather_pair_bwd": k * (n + 2), "layer_norm_relu": k * hidden,
+        "layer_norm_relu_bwd": k * hidden}
     for a, b in zip(got_w, want_w):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# An MLP's hidden layer after its bias-free Linear: bias, LayerNorm and ReLU
+# in one kernel a direction (ops/cuda/layer_norm.py)
+# ---------------------------------------------------------------------------
+
+LN_EPS = 1e-5
+# the Interaction Network's packed fullevent rows: edges and nodes
+LN_ROWS = (180_736, 15_848)
+
+
+def _ln_case(dev, rows, dtype, bias=True, h=128, seed=0, dead=False):
+    """Rows ``y`` ~ N(0, 1), a bias ~ N(0, 1) / 4, a scale and a shift
+    U(-1, 1) as the Interaction Network draws them, and an output
+    gradient ``dz`` ~ N(0, 1), made on the card.  ``dead``: a scale in
+    [0, 1/4] and a shift of -3, so that every output is <= 0 (a
+    normalised row of ``h`` values lies within sqrt(h - 1), 11.3 at 128)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    u = lambda *shape: torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+    c = dict(y=n(rows, h), b=n(h) / 4 if bias else None, g=u(h),
+             beta=u(h), dz=n(rows, h))
+    if dead:
+        c["g"], c["beta"] = c["g"].abs() / 4, torch.full_like(c["beta"], -3)
+    return {k: None if v is None else v.to(dtype) for k, v in c.items()}
+
+
+def _ln_run(c):
+    """The layer through autograd on the card: the output and the
+    gradients of ``y``, ``b`` (None without one), the scale and the
+    shift."""
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm as ln
+
+    leaves = [c["y"].clone().requires_grad_(True),
+              None if c["b"] is None else c["b"].clone().requires_grad_(True),
+              c["g"].clone().requires_grad_(True),
+              c["beta"].clone().requires_grad_(True)]
+    out = ln.layer_norm_relu(*leaves, LN_EPS)
+    grads = torch.autograd.grad(out, [t for t in leaves if t is not None],
+                                c["dz"])
+    if c["b"] is None:
+        grads = (grads[0], None) + grads[1:]
+    return (out,) + tuple(grads)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_relu_matches_plain_on_the_card(dev, rows, dtype, bias):
+    """The fused pair at the Interaction Network's shapes (H = 128) against
+    ``layer_norm_relu_reference`` and its autograd in f64, with the
+    kernels' ReLU mask (a value within f32 rounding of 0 before the ReLU
+    cannot flip one element of ``dy``; the output compared on its own
+    shows the mask sound): the output and ``dy`` at TOL, one rounding of
+    an f32 result each; the column sums (``db``, the scale's, the
+    shift's) sum 10^4-10^5 terms that cancel, so their atol is
+    PARAM_SUM_ATOL of the largest entry.  One launch a way."""
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm as ln
+
+    c = _ln_case(dev, rows, dtype, bias)
+    n0 = tsp.launch_counts()
+    out, dy, db, dg, dbeta = _ln_run(c)
+    torch.cuda.synchronize()
+    n1 = tsp.launch_counts()
+    assert {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} == {
+        "layer_norm_relu": 1, "layer_norm_relu_bwd": 1}
+    f64 = lambda t: None if t is None else t.double()
+    want = ln.layer_norm_relu_reference(f64(c["y"]), f64(c["b"]),
+                                        f64(c["g"]), f64(c["beta"]), LN_EPS)
+    assert out.dtype == dtype and out.shape == (rows, 128)
+    torch.testing.assert_close(out.double(), want, **TOL[dtype])
+    ref = ln.layer_norm_relu_bwd_reference(c["dz"], c["y"], c["b"], c["g"],
+                                           c["beta"], LN_EPS, live=out > 0)
+    for name, got, w in zip(("dy", "db", "dg", "dbeta"), (dy, db, dg, dbeta),
+                            ref):
+        if w is None:
+            assert got is None and not bias
+            continue
+        assert got.dtype == dtype, name
+        atol = TOL[dtype]["atol"] if name == "dy" else \
+            PARAM_SUM_ATOL[dtype] * float(w.abs().max())
+        torch.testing.assert_close(got.double(), w, rtol=TOL[dtype]["rtol"],
+                                   atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_relu_repeats_and_its_mask_is_the_forwards(dev, dtype):
+    """Two calls are bit-equal (forward, statistics and every gradient:
+    no atomics, a grid fixed by the rows); with ``dz`` all ones the
+    shift's gradient counts each column's live outputs, so the
+    backward's recomputed mask is the forward's ``out > 0`` exactly
+    (integer sums in f32, rounded once)."""
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm as ln
+
+    c = _ln_case(dev, LN_ROWS[0], dtype, seed=1)
+    a, b = _ln_run(c), _ln_run(c)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    args = (c["y"], c["b"], c["g"], c["beta"])
+    out, mean, rstd = ln.layer_norm_relu_fwd(*args, LN_EPS)
+    assert torch.equal(out, a[0])
+    _, _, _, dbeta = ln.layer_norm_relu_bwd(torch.ones_like(out), *args,
+                                            mean, rstd)
+    live = (out > 0).sum(0)
+    assert 0 < int(live.sum()) < out.numel()
+    assert torch.equal(dbeta, live.float().to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_relu_dead_rows_pass_no_gradient(dev, dtype):
+    """Every output <= 0: the output, ``dy`` and every column sum are
+    zeros."""
+    for t in _ln_run(_ln_case(dev, LN_ROWS[1], dtype, dead=True, seed=2)):
+        assert not t.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [8, 72, 136, 256])
+def test_layer_norm_relu_widths_on_the_card(dev, dtype, h):
+    """Every instantiation (1-4 16-byte items a lane in f32, 1-2 in bf16)
+    against the reference, on 1,000 rows (rows past a block's last group
+    too) and on a view 8 bytes off 16-byte alignment, which the wrapper
+    copies first."""
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm as ln
+
+    c = _ln_case(dev, 1000, dtype, h=h, seed=h)
+    base = torch.empty(1000 * h + 8, dtype=dtype, device=dev)
+    off = 8 // dtype.itemsize
+    view = base[off:off + 1000 * h].view(1000, h)
+    view.copy_(c["y"])
+    assert view.data_ptr() % 16 == 8
+    out, dy, db, dg, dbeta = _ln_run(c)
+    got = ln.layer_norm_relu(view, c["b"], c["g"], c["beta"], LN_EPS)
+    assert torch.equal(got, out)
+    f64 = lambda t: t.double()
+    want = ln.layer_norm_relu_reference(*(f64(c[k]) for k in
+                                          ("y", "b", "g", "beta")), LN_EPS)
+    torch.testing.assert_close(out.double(), want, **TOL[dtype])
+    ref = ln.layer_norm_relu_bwd_reference(c["dz"], c["y"], c["b"], c["g"],
+                                           c["beta"], LN_EPS, live=out > 0)
+    torch.testing.assert_close(dy.double(), ref[0], **TOL[dtype])
+    for got_sum, w in zip((db, dg, dbeta), ref[1:]):
+        torch.testing.assert_close(
+            got_sum.double(), w, rtol=TOL[dtype]["rtol"],
+            atol=PARAM_SUM_ATOL[dtype] * float(w.abs().max()))
+
+
+def test_interaction_gnn_on_the_card_matches_the_cpu(dev):
+    """One forward and backward of the Interaction Network (H = 128, 2
+    iterations, 3 layers an MLP) in f32 on a packed 4-sector graph, on
+    the card (the kernels) and on the CPU (their plain versions) from the
+    same weights: the logits and every leaf's gradient.  Both sides
+    compute the same f32 sums in another order (GEMMs, segment sums,
+    statistics): the largest gap measured on an H100 was 3.7e-7 of a
+    leaf's largest gradient entry, so IGN_TOL's 1e-5 leaves 27x room."""
+    from gnn_fpga_tpu_torch.models import interaction_gnn as ign
+    from gnn_fpga_tpu_torch.train.trainer import masked_bce_with_logits
+
+    g = _composed_batches(dev, 1, seed=11)[0]
+    cfg = ign.InteractionGNNConfig(hidden_dim=128, n_iters=2, mlp_layers=3)
+    card = ign.init_interaction_gnn(cfg, torch.Generator().manual_seed(7),
+                                    dev)
+    cpu = ign.InteractionGNN(cfg, torch.Generator(), "cpu")
+    with torch.no_grad():
+        # LayerNorm scales and shifts U(-1, 1), as the benchmark draws them
+        gen = torch.Generator().manual_seed(8)
+        for m in card.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.rand(p.shape, generator=gen) * 2 - 1)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    runs = []
+    for model, graph in ((card, g), (cpu, g.to("cpu"))):
+        logits = model(graph)
+        masked_bce_with_logits(logits, graph.y, graph.edge_mask,
+                               8.0).backward()
+        runs.append((logits.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (got, got_g), (want, want_g) = runs
+    gaps = {"logits": float((got - want).abs().max())}
+    torch.testing.assert_close(got, want, **IGN_TOL["logits"])
+    for name, w in want_g.items():
+        gaps[name] = float((got_g[name] - w).abs().max() / w.abs().max())
+        torch.testing.assert_close(
+            got_g[name], w, rtol=IGN_TOL["grads"]["rtol"],
+            atol=IGN_TOL["grads"]["atol"] * float(w.abs().max()), msg=name)
+    print("largest gaps (logits absolute, gradients over their largest "
+          "entry):", max(gaps.items(), key=lambda kv: kv[1]))
+
+
+# rtol, atol (the gradients' atol a share of the leaf's largest entry)
+IGN_TOL = {"logits": dict(rtol=1e-5, atol=1e-5),
+           "grads": dict(rtol=1e-4, atol=1e-5)}

@@ -97,6 +97,27 @@ def test_edge_sum_work_is_the_bwd_kernels_and_the_add():
 
 
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_layer_norm_relu_work_reads_and_writes_the_rows_once(dtype_bytes):
+    """The fused pair at the Interaction Network's edge rows (E = 180,736,
+    H = 128): forward the rows read and written once and 8 bytes of
+    statistics a row, 94 MB in bf16; backward two reads and a write, 140
+    MB; both bound by bytes, not by their f32 operations."""
+    h, rows = 128, 180_736
+    fwd = tflops.kernel_work("layer_norm_relu", dtype_bytes, V, rows, h, h)
+    bwd = tflops.kernel_work("layer_norm_relu_bwd", dtype_bytes, V, rows, h,
+                             h)
+    row = rows * h * dtype_bytes
+    assert fwd[0] == 2 * row + 8 * rows + 3 * h * dtype_bytes
+    assert bwd[0] == 3 * row + 8 * rows + 6 * h * dtype_bytes
+    if dtype_bytes == 2:
+        assert (round(fwd[0] / 1e6), round(bwd[0] / 1e6)) == (94, 140)
+    peaks = tflops._PEAKS["NVIDIA H100 80GB HBM3"]
+    for nbytes, ops in (fwd, bwd):
+        assert nbytes / (peaks.hbm_gbps * 1e9) > ops / (peaks.f32_tflops
+                                                         * 1e12)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
 def test_fused_step_cost_sums_its_launches(dtype_bytes):
     """At the fullevent shapes: the f32 operations and kernel bytes are
     the sum of kernel_work over a step's launches (6 of #1 and #3, one of

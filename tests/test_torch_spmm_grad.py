@@ -194,7 +194,9 @@ def test_plain_backwards_match_autograd_of_plain_forwards():
 
 
 def test_bwd_wrappers_do_not_count_on_cpu():
-    # the probes' wrappers count here once their module is imported
+    # the probes' and the LayerNorm's wrappers count here once their
+    # modules are imported
+    from gnn_fpga_tpu_torch.ops.cuda import layer_norm  # noqa: F401
     from gnn_fpga_tpu_torch.ops.cuda import probes  # noqa: F401
 
     c = _case(35, 40, 96, 6, 5, "padded")
@@ -218,7 +220,8 @@ def test_bwd_wrappers_do_not_count_on_cpu():
                            "sddmm_dual",
                            "sorted_segment_sum", "select_segments",
                            "passthrough", "gather_rows", "ablate_rows",
-                           "iteration_pair_bwd_recompute"}
+                           "iteration_pair_bwd_recompute", "layer_norm_relu",
+                           "layer_norm_relu_bwd"}
 
 
 # ---------------------------------------------------------------------------
