@@ -397,8 +397,7 @@ def expected_counts(**launched) -> dict:
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last reset, by ``KERNELS`` name
-    (``spmm.launch_counts``; 0 for a wrapper whose module this process
-    has not imported: the probes' register themselves on import)."""
+    (``spmm.launch_counts``)."""
     from gnn_fpga_tpu_torch.ops.cuda import spmm
 
     return expected_counts(**spmm.launch_counts())
@@ -894,14 +893,15 @@ def phase_probes(g_full) -> dict:
           flush=True)
     rows = {}
 
-    def launched_twice(name, what, kern, counter):
-        """Two launches of ``kern``: counted, and equal bit for bit."""
-        n0 = counter.launches
+    def launched_twice(name, what, kern):
+        """Two launches of ``kern``: counted as ``name``, and equal bit for
+        bit."""
+        n0 = spmm.launch_counts()[name]
         first, again = kern(), kern()
         torch.cuda.synchronize()
-        if counter.launches != n0 + 2:
-            fail(f"{name} {what}: {counter.launches - n0} launches counted "
-                 f"for 2 calls")
+        n = spmm.launch_counts()[name] - n0
+        if n != 2:
+            fail(f"{name} {what}: {n} launches counted for 2 calls")
         pairs = zip(first, again) if isinstance(first, tuple) else \
             ((first, again),)
         if not all(torch.equal(a, b) for a, b in pairs):
@@ -938,8 +938,7 @@ def phase_probes(g_full) -> dict:
         for vec in probes.PASSTHROUGH_VECTORS:
             what = f"{tag} [{e}, {d}], {vec} vectors a thread"
             got = launched_twice("passthrough", what,
-                                 lambda: probes.passthrough(x, vec),
-                                 probes.passthrough)
+                                 lambda: probes.passthrough(x, vec))
             err = exact(f"passthrough {what}", got,
                         probes.passthrough_reference(x))
             row = measure("passthrough", what,
@@ -954,8 +953,7 @@ def phase_probes(g_full) -> dict:
                 rows["passthrough"] = dict(max_abs_err=err, **row)
         what = f"{tag} [{v}, {d}] table, {e} random ids"
         got = launched_twice("gather_rows", what,
-                             lambda: probes.gather_rows(h, ridx),
-                             probes.gather_rows)
+                             lambda: probes.gather_rows(h, ridx))
         err = exact(f"gather_rows {what}", got,
                     probes.gather_rows_reference(h, ridx))
         row = measure("gather_rows", what,
@@ -1011,8 +1009,7 @@ def phase_probes(g_full) -> dict:
                 for m in probes.ABLATION_MODES if m != "aligned"}
         runs["aligned"] = lambda: probes.ablate_rows(padded, w, plan,
                                                      "aligned", width=width)
-        got = {m: launched_twice("ablate_rows", f"{m} {what}", run,
-                                 probes.ablate_rows)
+        got = {m: launched_twice("ablate_rows", f"{m} {what}", run)
                for m, run in runs.items()}
         exact(f"ablate_rows full vs spmm_raw {what}", got["full"],
               spmm.spmm_raw(h, w, plan))
@@ -1098,8 +1095,7 @@ def phase_probes(g_full) -> dict:
             recompute = lambda: probes.iteration_pair_bwd_recompute(
                 *ip, *grads, plans)
             got = launched_twice("iteration_pair_bwd_recompute", what,
-                                 recompute,
-                                 probes.iteration_pair_bwd_recompute)
+                                 recompute)
             prod = stashed()
             plain = lambda: spmm.iteration_pair_bwd_reference(*ip, *grads,
                                                               *ids)
@@ -1367,14 +1363,14 @@ def phase_stream(g_full) -> None:
     d, hdim = HIDDEN + INPUT_DIM, HIDDEN
     print("stream kernels, with and without the pad edges:", flush=True)
 
-    def check(name, what, kern, plain, counter, rtol_atol=None):
-        n0 = counter.launches
+    def check(name, what, kern, plain, rtol_atol=None):
+        n0 = spmm.launch_counts()[name]
         first, again = kern(), kern()
         ref = plain()
         torch.cuda.synchronize()
-        if counter.launches != n0 + 2:
-            fail(f"{name} {what}: {counter.launches - n0} launches counted "
-                 f"for 2 calls")
+        n = spmm.launch_counts()[name] - n0
+        if n != 2:
+            fail(f"{name} {what}: {n} launches counted for 2 calls")
         if not torch.equal(first, again):
             fail(f"{name} {what}: two launches differ")
         if rtol_atol is None:
@@ -1419,8 +1415,7 @@ def phase_stream(g_full) -> None:
                 check("sorted_segment_sum", what,
                       lambda: segment_sum.sorted_segment_sum(msgs, sg, N_NODE,
                                                              prec),
-                      lambda: ref, segment_sum.sorted_segment_sum,
-                      (rtol, atol))
+                      lambda: ref, (rtol, atol))
             bound, _ = bound_ms("sorted_segment_sum", dt, N_NODE, n_kept, d,
                                 hdim)
             m64 = m_sorted[:, :64].contiguous()
@@ -1454,8 +1449,7 @@ def phase_stream(g_full) -> None:
             what = f"{tag} ({pad}, E={e}, H={hdim})"
             check("gather_pair", what,
                   lambda: spmm.gather_pair_fwd(pa, pb, s, r),
-                  lambda: spmm.gather_pair_reference(pa, pb, s, r),
-                  spmm.gather_pair)
+                  lambda: spmm.gather_pair_reference(pa, pb, s, r))
 
 
 def segment_ids(g, gen):

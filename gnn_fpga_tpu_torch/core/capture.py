@@ -27,7 +27,7 @@ replay runs the ``K`` steps; the stack's leading axis makes ``K`` part of
 the signature.  Memory freed by step ``k`` during the capture goes back
 to the capture's pool, where step ``k + 1`` takes it again.
 
-Kernel launch counts (``ops/cuda/spmm.py::launch_counts``): the capture
+Kernel launch counts (``ops/cuda/_build.py::launch_counts``): the capture
 records the launches it made and takes them back, since capture launches
 nothing; each replay adds them, since a replay launches those kernels
 (``K`` steps' launches for a K-step graph).
@@ -44,6 +44,7 @@ from gnn_fpga_tpu_torch.core import staging
 from gnn_fpga_tpu_torch.core.graph import index_fields
 # callers take the signature from here, where captures are keyed by it
 from gnn_fpga_tpu_torch.core.staging import signature  # noqa: F401
+from gnn_fpga_tpu_torch.ops.cuda._build import add_launch_counts, launch_counts
 from gnn_fpga_tpu_torch.utils.profiling import span
 
 
@@ -137,16 +138,12 @@ class CapturedCall:
 
     def replay(self):
         """Run the captured program on the buffers; returns its output."""
-        from gnn_fpga_tpu_torch.ops.cuda import spmm
-
         with span("gnn.captured.replay"):
             self.graph.replay()
-            spmm.add_launch_counts(self.launches)
+            add_launch_counts(self.launches)
         return self.output
 
     def _warm_up_and_capture(self):
-        from gnn_fpga_tpu_torch.ops.cuda import spmm
-
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -158,7 +155,7 @@ class CapturedCall:
             out.record_stream(current)
         torch.cuda.synchronize(self.device)    # as the capture's start does
         t1 = time.perf_counter()
-        before = spmm.launch_counts()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         # A graph that the collector frees while this one is captured
         # (another call's, in an unreachable cycle) would end the capture:
@@ -179,8 +176,8 @@ class CapturedCall:
                 gc.enable()
         self.timings = dict(eager_s=t1 - t0, capture_s=t3 - t2,
                             instantiate_s=time.perf_counter() - t3)
-        after = spmm.launch_counts()
+        after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
-        spmm.add_launch_counts({k: -n for k, n in self.launches.items()})
+        add_launch_counts({k: -n for k, n in self.launches.items()})
         self.graph = graph
         return out

@@ -29,14 +29,13 @@ needs at most ``size + 3`` slots a signature: ``size`` queued, one in
 the worker's hands, the consumer's and the one it is letting go of.  Of
 the rings the least recently used past :data:`MAX_RINGS` give their free
 slots back; :meth:`PrefetchIterator.close` and exhaustion free them all.
-Another batch is pinned and copied as it is, and its tensors are marked
-as used on the consumer's stream (``record_stream``).  On the CPU the
-iterator only queues.
+A batch that is not a ``TensorFields`` raises ``TypeError`` on a CUDA
+device.  On the CPU the iterator only queues.
 
 ``PrefetchIterator.stats`` counts the batches ``staged``, the slots
 ``recycled`` and ``grown`` (a new slot where the ring had slots but the
-consumer held every one), and the batches ``unstaged`` (copied as they
-are, or only queued on the CPU).
+consumer held every one), and the batches ``unstaged`` (only queued, on
+the CPU).
 
 Under a profiler (:func:`~gnn_fpga_tpu_torch.utils.profiling.span`) the
 consumer's blocking take from the queue is the span ``gnn.prefetch.wait``
@@ -180,18 +179,14 @@ class PrefetchIterator:
         self._thread.start()
 
     def _copy(self, batch):
-        """The worker's copy of ``batch``: ``(slot, None)`` for a staged
-        batch, ``(batch on the device, its copy's event or None)``
-        otherwise."""
+        """The worker's copy of ``batch``: the slot it is staged in on a
+        CUDA device, else ``batch`` on the device."""
         if self._stream is None:
             self.stats["unstaged"] += 1
-            return batch.to(self.device), None
+            return batch.to(self.device)
         if not isinstance(batch, TensorFields):
-            self.stats["unstaged"] += 1
-            dev = batch.pin_memory().to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-            return dev, done
+            raise TypeError(f"prefetching to {self.device} stages "
+                            f"TensorFields batches, not {type(batch)}")
         sig, tensors = staging.flatten(batch)
         slot = self._take(sig, batch)
         # what a batch's first tensor with memory shows: pin_memory() pins
@@ -201,7 +196,7 @@ class PrefetchIterator:
         pinned = first is None or first.is_pinned()
         slot.fill(tensors, pinned, self._stream)
         self.stats["staged"] += 1
-        return slot, None
+        return slot
 
     def _take(self, sig, batch) -> _Slot:
         """A free slot of ``sig``'s ring, or a new one."""
@@ -258,20 +253,14 @@ class PrefetchIterator:
                 err, self._err = self._err, None
                 raise err
             raise StopIteration
-        batch, done = item
         with span("gnn.prefetch.handoff"):
-            if isinstance(batch, _Slot):
-                slot, batch = batch, batch.tree
-                slot.stream = torch.cuda.current_stream(self.device)
-                slot.stream.wait_event(slot.done)
-                # the consumer's reference to the tree now marks it held
-                slot.queued = False
-            elif done is not None:
-                current = torch.cuda.current_stream(self.device)
-                current.wait_event(done)
-                for t in batch.tensors():
-                    t.record_stream(current)
-        return batch
+            if not isinstance(item, _Slot):
+                return item
+            item.stream = torch.cuda.current_stream(self.device)
+            item.stream.wait_event(item.done)
+            # the consumer's reference to the tree now marks it held
+            item.queued = False
+        return item.tree
 
     def close(self):
         self._stop.set()

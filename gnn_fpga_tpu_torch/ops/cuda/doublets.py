@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from gnn_fpga_tpu_torch.ops.cuda._build import kernel_device, launch
+
 # Elements of one [rows, N2] temporary of the plain version (f64: 32 MB)
 CHUNK_ELEMS = 1 << 22
 
@@ -99,42 +101,27 @@ def select_segments(r1, phi1, z1, r2, phi2, z2, off1, off2, phi_slope_cuts,
                     z0_max: float):
     """The kept ``(i1, i2)`` of every layer pair (module docstring), int64
     on the hits' device.  On the card the CUDA kernel (one count and one
-    emit launch, one host sync between, counted as one launch in
-    ``select_segments.launches``); on the CPU the plain version.  The
+    emit launch, one host sync between, counted as one
+    ``select_segments``); on the CPU the plain version.  The
     offsets must start at 0, rise, and end at N1 and N2: the kernel reads
     every hit they name."""
     _check(r1, phi1, z1, r2, phi2, z2, off1, off2, phi_slope_cuts)
-    dev = r1.device
-    if dev.type == "cpu":
+    dev = kernel_device(r1, "select_segments")
+    if dev is None:
         return select_segments_reference(r1, phi1, z1, r2, phi2, z2, off1,
                                          off2, phi_slope_cuts, z0_max)
-    if dev.type != "cuda":
-        raise ValueError(f"select_segments: tensors on {dev}, expected CPU "
-                         "or CUDA")
-    from gnn_fpga_tpu_torch.ops.cuda.spmm import (_lib, _ptr,
-                                                  _raise_on_error, _stream)
-
     n_pairs, n1 = phi_slope_cuts.shape[0], r1.shape[0]
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     if n_pairs == 0 or n1 == 0 or r2.shape[0] == 0:
         return empty, empty.clone()
-    lib = _lib()
-    args = (n_pairs, n1, _ptr(r1), _ptr(phi1), _ptr(z1), _ptr(r2),
-            _ptr(phi2), _ptr(z2), _ptr(off1), _ptr(off2),
-            _ptr(phi_slope_cuts), float(z0_max))
+    args = (n_pairs, n1, r1, phi1, z1, r2, phi2, z2, off1, off2,
+            phi_slope_cuts, float(z0_max))
     counts = torch.empty(n1, dtype=torch.int64, device=dev)
-    _raise_on_error(lib.gnn_doublet_count(*args, _ptr(counts), _stream(r1)),
-                    "gnn_doublet_count")
+    launch("gnn_doublet_count", *args, counts, count="select_segments")
     ends = torch.cumsum(counts, 0)
     total = int(ends[-1])                  # the one host sync
     out1 = torch.empty(total, dtype=torch.int64, device=dev)
     out2 = torch.empty(total, dtype=torch.int64, device=dev)
     if total:
-        _raise_on_error(lib.gnn_doublet_emit(*args, _ptr(ends), _ptr(out1),
-                                             _ptr(out2), _stream(r1)),
-                        "gnn_doublet_emit")
-    select_segments.launches += 1
+        launch("gnn_doublet_emit", *args, ends, out1, out2)
     return out1, out2
-
-
-select_segments.launches = 0

@@ -21,9 +21,8 @@ it), and :func:`linear_layer_norm_relu`, the whole layer with its
 Linear, is ``F.linear``, ``F.layer_norm`` and ``F.relu``; the kernel
 wrappers :func:`layer_norm_relu_fwd` and :func:`layer_norm_relu_bwd` run
 the kernels' arithmetic in plain PyTorch there (f64 too, for gradient
-checks).  The wrappers count their calls in ``<wrapper>.launches``
-(registered with
-:func:`~gnn_fpga_tpu_torch.ops.cuda.spmm.register_kernel_wrappers`).
+checks).  The wrappers count their calls under their names in
+``_build.launch_counts``.
 """
 
 from __future__ import annotations
@@ -31,10 +30,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gnn_fpga_tpu_torch.ops.cuda import spmm
-from gnn_fpga_tpu_torch.ops.cuda.spmm import (_DTYPE_CODES, _MAX_WIDTH,
-                                              _grad_as, _kernel_device, _lib,
-                                              _ptr, _raise_on_error, _stream)
+from gnn_fpga_tpu_torch.ops.cuda._build import (DTYPE_CODES, MAX_WIDTH,
+                                                alignment, grad_as,
+                                                kernel_device, launch)
 
 # The backward's blocks at most (``csrc/layer_norm.cu``'s kMaxBlocks): its
 # scratch holds a row of 3 x H f32 partial sums a block.
@@ -91,11 +89,11 @@ def _check(name, y, b, g, beta):
     if y.ndim != 2:
         raise ValueError(f"{name}: y must be [N, H]")
     h = y.shape[1]
-    if h % WIDTH_MULTIPLE or not 0 < h <= _MAX_WIDTH:
+    if h % WIDTH_MULTIPLE or not 0 < h <= MAX_WIDTH:
         raise ValueError(f"{name}: width {h} is not a multiple of "
-                         f"{WIDTH_MULTIPLE} up to {_MAX_WIDTH}")
-    ok = tuple(_DTYPE_CODES) + (_CPU_ONLY_DTYPES if y.device.type == "cpu"
-                                else ())
+                         f"{WIDTH_MULTIPLE} up to {MAX_WIDTH}")
+    ok = tuple(DTYPE_CODES) + (_CPU_ONLY_DTYPES if y.device.type == "cpu"
+                               else ())
     if y.dtype not in ok:
         raise ValueError(f"{name}: unsupported dtype {y.dtype}")
     for pname, p in (("b", b), ("g", g), ("beta", beta)):
@@ -111,20 +109,20 @@ def _check(name, y, b, g, beta):
 def _aligned(t):
     """``t``, or a copy of it where its data is not 16-byte aligned (a
     view into a larger tensor): the kernels load 16 bytes at a time."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+    return t if t is None or alignment(t) == 16 else t.clone()
 
 
 def layer_norm_relu_fwd(y, b, g, beta, eps):
     """:func:`layer_norm_relu`'s forward, no VJP attached: ``(out, mean,
     rstd)``, ``out`` [N, H] in ``y.dtype`` and each row's mean and
     ``1 / sqrt(var + eps)`` [N] (f32; f64 for f64 rows).  One kernel
-    launch on CUDA tensors, counted in ``layer_norm_relu.launches``."""
+    launch on CUDA tensors, counted as ``layer_norm_relu``."""
     _check("layer_norm_relu", y, b, g, beta)
     return _fwd(y, b, g, beta, eps)
 
 
 def _fwd(y, b, g, beta, eps):
-    dev = _kernel_device(y, "layer_norm_relu")
+    dev = kernel_device(y, "layer_norm_relu")
     n, h = y.shape
     if dev is None:
         acc = _acc(y.dtype)
@@ -137,12 +135,8 @@ def _fwd(y, b, g, beta, eps):
     out = torch.empty_like(y)
     mean = torch.empty(n, dtype=torch.float32, device=dev)
     rstd = torch.empty_like(mean)
-    code = _lib().gnn_layer_norm_relu_fwd(
-        _DTYPE_CODES[y.dtype], n, h, float(eps), _ptr(y),
-        None if b is None else _ptr(b), _ptr(g), _ptr(beta), _ptr(out),
-        _ptr(mean), _ptr(rstd), _stream(y))
-    _raise_on_error(code, "gnn_layer_norm_relu_fwd")
-    layer_norm_relu.launches += 1
+    launch("gnn_layer_norm_relu_fwd", y.dtype, n, h, float(eps), y, b, g,
+           beta, out, mean, rstd, count="layer_norm_relu")
     return out, mean, rstd
 
 
@@ -151,8 +145,8 @@ def layer_norm_relu_bwd(dz, y, b, g, beta, mean, rstd):
     and the forward's ``mean`` and ``rstd``: ``(dy, db, dg, dbeta)``,
     ``db`` None without a bias, each in ``y.dtype``.  The ReLU mask is
     recomputed from ``y``.  On CUDA tensors a pass over the rows and a
-    launch that adds the blocks' column sums, counted as one in
-    ``layer_norm_relu_bwd.launches``."""
+    launch that adds the blocks' column sums, counted as one
+    ``layer_norm_relu_bwd``."""
     _check("layer_norm_relu_bwd", y, b, g, beta)
     if dz.shape != y.shape or dz.dtype != y.dtype:
         raise ValueError("layer_norm_relu_bwd: dz must be like y")
@@ -160,7 +154,7 @@ def layer_norm_relu_bwd(dz, y, b, g, beta, mean, rstd):
 
 
 def _bwd(dz, y, b, g, beta, mean, rstd):
-    dev = _kernel_device(y, "layer_norm_relu_bwd")
+    dev = kernel_device(y, "layer_norm_relu_bwd")
     n, h = y.shape
     if dev is None:
         xhat = _normalised(y, b, mean, rstd)
@@ -183,13 +177,8 @@ def _bwd(dz, y, b, g, beta, mean, rstd):
                        device=dev)
     dg, dbeta = torch.empty_like(g), torch.empty_like(beta)
     db = None if b is None else torch.empty_like(b)
-    code = _lib().gnn_layer_norm_relu_bwd(
-        _DTYPE_CODES[y.dtype], n, h, _ptr(dz), _ptr(y),
-        None if b is None else _ptr(b), _ptr(g), _ptr(beta), _ptr(mean),
-        _ptr(rstd), _ptr(dy), _ptr(part), _ptr(dg), _ptr(dbeta),
-        None if db is None else _ptr(db), _stream(y))
-    _raise_on_error(code, "gnn_layer_norm_relu_bwd")
-    layer_norm_relu_bwd.launches += 1
+    launch("gnn_layer_norm_relu_bwd", y.dtype, n, h, dz, y, b, g, beta, mean,
+           rstd, dy, part, dg, dbeta, db, count="layer_norm_relu_bwd")
     return dy, db, dg, dbeta
 
 
@@ -206,7 +195,7 @@ class _LayerNormReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz):
         y, b, g, beta, mean, rstd = ctx.saved_tensors
-        dy, db, dg, dbeta = _bwd(_grad_as(dz, y.dtype), y, b, g, beta, mean,
+        dy, db, dg, dbeta = _bwd(grad_as(dz, y.dtype), y, b, g, beta, mean,
                                  rstd)
         return dy, db, dg, dbeta, None
 
@@ -222,7 +211,7 @@ def layer_norm_relu(y, b, g, beta, eps):
     :func:`layer_norm_relu_reference`.  ``H`` is a multiple of 8 up to
     256; f32 or bf16 on the card; anything else raises."""
     _check("layer_norm_relu", y, b, g, beta)
-    if y.device.type == "cpu":
+    if kernel_device(y, "layer_norm_relu") is None:
         return layer_norm_relu_reference(y, b, g, beta, eps)
     return _LayerNormReLU.apply(y, b, g, beta, eps)
 
@@ -233,13 +222,8 @@ def linear_layer_norm_relu(x, w, b, g, beta, eps):
     :func:`layer_norm_relu`, whose kernels add the bias and sum its
     gradient; on CPU tensors the layer as PyTorch composes it,
     ``F.linear`` with its bias, ``F.layer_norm``, ``F.relu``."""
-    if x.device.type != "cpu":
+    if kernel_device(x, "linear_layer_norm_relu") is not None:
         return layer_norm_relu(F.linear(x, w), b, g, beta, eps)
     y = F.linear(x, w, b)
     _check("linear_layer_norm_relu", y, b, g, beta)
     return F.relu(F.layer_norm(y, y.shape[-1:], g, beta, eps))
-
-
-layer_norm_relu.launches = 0
-layer_norm_relu_bwd.launches = 0
-spmm.register_kernel_wrappers(layer_norm_relu, layer_norm_relu_bwd)

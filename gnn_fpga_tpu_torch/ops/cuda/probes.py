@@ -19,9 +19,8 @@ never by the model.
   ``spmm.iteration_pair_bwd_stashed_reference``) is timed.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version
-(``*_reference``) on CPU tensors, and counts its launches in
-``<wrapper>.launches``, which ``spmm.launch_counts`` gathers once this
-module is imported (``spmm.register_kernel_wrappers``).
+(``*_reference``) on CPU tensors, and counts its calls under its name in
+``_build.launch_counts``.
 """
 
 from __future__ import annotations
@@ -29,6 +28,9 @@ from __future__ import annotations
 import torch
 
 from gnn_fpga_tpu_torch.ops.cuda import spmm
+from gnn_fpga_tpu_torch.ops.cuda._build import (DTYPE_CODES, alignment,
+                                                check_cuda, check_widths,
+                                                kernel_device, launch)
 from gnn_fpga_tpu_torch.ops.segment import segment_sum
 
 # Sorted edges a group of the ablation's group modes sums (the TPU
@@ -110,21 +112,18 @@ def passthrough(x, vectors: int = 4):
     """``x * 2`` in one kernel launch, in 16-byte vectors, ``vectors`` of
     them (1, 2 or 4) loaded by a thread before it stores any.  ``x``:
     contiguous f32 or bf16, 16-byte aligned."""
-    dev = spmm._kernel_device(x, "passthrough")
+    dev = kernel_device(x, "passthrough")
     if dev is None:
         return passthrough_reference(x)
     if vectors not in PASSTHROUGH_VECTORS:
         raise ValueError(f"passthrough: vectors must be one of "
                          f"{PASSTHROUGH_VECTORS}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x.is_contiguous() or alignment(x) < 16:
         raise ValueError("passthrough: x must be contiguous and 16-byte "
                          "aligned")
     out = torch.empty_like(x)
-    code = spmm._lib().gnn_passthrough(spmm._DTYPE_CODES[x.dtype], x.numel(),
-                                       vectors, spmm._ptr(x),
-                                       spmm._ptr(out), spmm._stream(x))
-    spmm._raise_on_error(code, "gnn_passthrough")
-    passthrough.launches += 1
+    launch("gnn_passthrough", x.dtype, x.numel(), vectors, x, out,
+           count="passthrough")
     return out
 
 
@@ -134,22 +133,21 @@ def gather_rows(h, idx):
     bytes where the row and ``h``'s alignment allow.  Bit for bit equal to
     ``h.index_select(0, idx)``.  An id outside [0, V) raises on the CPU
     and stops the kernel at a device-side assert on the card."""
-    dev = spmm._kernel_device(h, "gather_rows")
+    dev = kernel_device(h, "gather_rows")
     if dev is None:
         return gather_rows_reference(h, idx)
+    if h.dtype not in DTYPE_CODES:
+        raise ValueError(f"gather_rows: unsupported dtype {h.dtype}")
     if h.ndim != 2 or idx.ndim != 1:
         raise ValueError("gather_rows: h must be [V, D] and idx [E]")
-    spmm._check_cuda(dev, h.dtype, h=h)
-    spmm._check_cuda(dev, torch.int32, idx=idx)
+    check_cuda(dev, h.dtype, h=h)
+    check_cuda(dev, torch.int32, idx=idx)
     n_node, d = h.shape
     out = torch.empty((idx.shape[0], d), dtype=h.dtype, device=dev)
     row_bytes = d * h.element_size()
-    item = _item_bytes(row_bytes, spmm._alignment(h, out))
-    code = spmm._lib().gnn_gather_rows(n_node, idx.shape[0], row_bytes, item,
-                                       spmm._ptr(h), spmm._ptr(idx),
-                                       spmm._ptr(out), spmm._stream(h))
-    spmm._raise_on_error(code, "gnn_gather_rows")
-    gather_rows.launches += 1
+    item = _item_bytes(row_bytes, alignment(h, out))
+    launch("gnn_gather_rows", n_node, idx.shape[0], row_bytes, item, h, idx,
+           out, count="gather_rows")
     return out
 
 
@@ -182,7 +180,7 @@ def ablate_rows(h, w, plan: spmm.EdgePlan, mode: str, width=None):
         raise ValueError("ablate_rows: width is given with mode 'aligned' "
                          "only")
     w = w.float()
-    dev = spmm._kernel_device(h, "ablate_rows")
+    dev = kernel_device(h, "ablate_rows")
     if dev is None:
         table = h if width is None else h[:, :width]
         out = ablate_rows_reference(table, w, plan,
@@ -194,10 +192,10 @@ def ablate_rows(h, w, plan: spmm.EdgePlan, mode: str, width=None):
     if mode in ("no_gather", "compute") and v < STATIC_ROWS:
         raise ValueError(f"ablate_rows: {mode} reads rows j mod "
                          f"{STATIC_ROWS}, so needs V >= {STATIC_ROWS}")
-    spmm._check_widths("ablate_rows", pitch)
-    spmm._check_cuda(dev, h.dtype, h=h)
-    spmm._check_cuda(dev, torch.float32, w=w)
-    spmm._check_plan("ablate_rows", plan, dev, v)
+    check_widths("ablate_rows", pitch)
+    check_cuda(dev, h.dtype, h=h)
+    check_cuda(dev, torch.float32, w=w)
+    spmm.check_plan("ablate_rows", plan, dev, v)
     n_groups = -(-plan.n_edge // ABLATE_GROUP)
     if mode == "ids_only":
         out = torch.empty((n_groups, 2), dtype=torch.float32, device=dev)
@@ -211,16 +209,12 @@ def ablate_rows(h, w, plan: spmm.EdgePlan, mode: str, width=None):
         # that each column is summed in full's order
         item, log_lanes = 16, spmm.row_launch(width, h.dtype).log_lanes
     else:
-        la = spmm.row_launch(pitch, h.dtype, spmm._alignment(h, out))
+        la = spmm.row_launch(pitch, h.dtype, alignment(h, out))
         item, log_lanes = la.item_bytes, la.log_lanes
-    code = spmm._lib().gnn_ablate_rows(
-        _MODE_CODES[mode], spmm._DTYPE_CODES[h.dtype], v, plan.n_edge, pitch,
-        item, log_lanes, spmm._ptr(h), spmm._ptr(w), spmm._ptr(plan.seg_ptr),
-        spmm._ptr(plan.sorted_oth), spmm._ptr(plan.order),
-        spmm._ptr(plan.long_seg), len(plan.long_seg), spmm._ptr(out),
-        spmm._stream(h))
-    spmm._raise_on_error(code, "gnn_ablate_rows")
-    ablate_rows.launches += 1
+    launch("gnn_ablate_rows", _MODE_CODES[mode], h.dtype, v, plan.n_edge,
+           pitch, item, log_lanes, h, w, plan.seg_ptr, plan.sorted_oth,
+           plan.order, plan.long_seg, len(plan.long_seg), out,
+           count="ablate_rows")
     return out if width is None else out[:, :width]
 
 
@@ -233,23 +227,11 @@ def iteration_pair_bwd_recompute(pa, pb, h, em_sorted, w2, b1, b2, g_mi,
     Arguments and results as ``spmm.iteration_pair_bwd``'s, without
     ``sig_sorted``; its plain version is
     ``spmm.iteration_pair_bwd_reference``."""
-    dev = spmm._kernel_device(h, "iteration_pair_bwd_recompute")
-    if dev is None:
+    if kernel_device(h, "iteration_pair_bwd_recompute") is None:
         return spmm.iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2,
                                        g_mi, g_mo, plans)
-    spmm._check_iteration("iteration_pair_bwd_recompute", pa, pb, h,
-                          em_sorted, w2, b1, b2, plans, g_mi=g_mi, g_mo=g_mo)
-    out = spmm._launch_iteration_bwd("gnn_iteration_pair_bwd_recompute", b2,
-                                     pa, pb, h, em_sorted, w2, b1, b2, g_mi,
-                                     g_mo, plans)
-    iteration_pair_bwd_recompute.launches += 1
-    return out
-
-
-passthrough.launches = 0
-gather_rows.launches = 0
-ablate_rows.launches = 0
-iteration_pair_bwd_recompute.launches = 0
-
-spmm.register_kernel_wrappers(passthrough, gather_rows, ablate_rows,
-                              iteration_pair_bwd_recompute)
+    spmm.check_iteration("iteration_pair_bwd_recompute", pa, pb, h,
+                         em_sorted, w2, b1, b2, plans, g_mi=g_mi, g_mo=g_mo)
+    return spmm.launch_iteration_bwd(
+        "gnn_iteration_pair_bwd_recompute", "iteration_pair_bwd_recompute",
+        b2, pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo, plans)

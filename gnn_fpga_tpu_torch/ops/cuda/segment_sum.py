@@ -27,10 +27,9 @@ import numpy as np
 import torch
 
 from gnn_fpga_tpu_torch.core.graph import TensorFields
-from gnn_fpga_tpu_torch.ops.cuda.spmm import (_DTYPE_CODES, _alignment,
-                                              _check_cuda, _check_widths,
-                                              _kernel_device, _lib, _ptr,
-                                              _raise_on_error, _stream)
+from gnn_fpga_tpu_torch.ops.cuda._build import (DTYPE_CODES, alignment,
+                                                check_cuda, check_widths,
+                                                kernel_device, launch)
 from gnn_fpga_tpu_torch.ops.segment import segment_sum
 
 # "highest" sums the f32 messages exactly; "default" rounds each message to
@@ -122,32 +121,28 @@ def segment_sum_reference(messages, ids, n_node):
 
 def _segment_sum_fwd(sorted_messages, seg: SortedSegments, precision):
     n_node = seg.n_node
-    dev = _kernel_device(sorted_messages, "sorted_segment_sum")
+    dev = kernel_device(sorted_messages, "sorted_segment_sum")
     if dev is None:
         m = sorted_messages
         if precision == "default":
             m = m.to(torch.bfloat16)
         return segment_sum_reference(m, seg.sorted_ids, n_node).to(
             sorted_messages.dtype)
-    d = sorted_messages.shape[1]
-    _check_widths("sorted_segment_sum", d)
-    _check_cuda(dev, sorted_messages.dtype, sorted_messages=sorted_messages)
-    _check_cuda(dev, torch.int32, sorted_ids=seg.sorted_ids, ptr=seg.ptr)
-    out = torch.empty((n_node, d), dtype=sorted_messages.dtype, device=dev)
+    d, dtype = sorted_messages.shape[1], sorted_messages.dtype
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"sorted_segment_sum: unsupported dtype {dtype}")
+    check_widths("sorted_segment_sum", d)
+    check_cuda(dev, dtype, sorted_messages=sorted_messages)
+    check_cuda(dev, torch.int32, sorted_ids=seg.sorted_ids, ptr=seg.ptr)
+    out = torch.empty((n_node, d), dtype=dtype, device=dev)
     if d == 0:
         return out
-    la = segment_launch(d, sorted_messages.dtype,
-                        _alignment(sorted_messages))
+    la = segment_launch(d, dtype, alignment(sorted_messages))
     part = torch.empty((max(1, -(-seg.n_kept // la.tile_rows)), 2, d),
                        dtype=torch.float32, device=dev)
-    code = _lib().gnn_sorted_segment_sum(
-        _DTYPE_CODES[sorted_messages.dtype], seg.n_kept, n_node, d,
-        la.tile_rows,
-        la.unit, _ptr(sorted_messages), _ptr(seg.sorted_ids), _ptr(seg.ptr),
-        int(precision == "default"), _ptr(part), _ptr(out),
-        _stream(sorted_messages))
-    _raise_on_error(code, "gnn_sorted_segment_sum")
-    sorted_segment_sum.launches += 1
+    launch("gnn_sorted_segment_sum", dtype, seg.n_kept, n_node, d,
+           la.tile_rows, la.unit, sorted_messages, seg.sorted_ids, seg.ptr,
+           int(precision == "default"), part, out, count="sorted_segment_sum")
     return out
 
 
@@ -167,8 +162,8 @@ class _SortedSegmentSum(torch.autograd.Function):
 def sorted_segment_sum(sorted_messages, seg: SortedSegments, n_node: int,
                        precision: str = "highest"):
     """``out[n] = sum_e sorted_messages[e] * (seg.sorted_ids[e] == n)`` in
-    one call of the kernel (two CUDA launches, counted as one in
-    ``sorted_segment_sum.launches``).  ``sorted_messages`` [E, D] must already be in
+    one call of the kernel (two CUDA launches, counted as one
+    ``sorted_segment_sum``).  ``sorted_messages`` [E, D] must already be in
     ``seg.order``; ids equal to ``n_node`` are dropped.  Returns [n_node,
     D] in the messages' dtype, summed in f32.  The backward is a row
     gather (``index_select``), as in the JAX package."""
@@ -180,6 +175,3 @@ def sorted_segment_sum(sorted_messages, seg: SortedSegments, n_node: int,
                                      != seg.sorted_ids.shape[0]):
         raise ValueError("sorted_messages must be [E, D] over the segments")
     return _SortedSegmentSum.apply(sorted_messages, seg, precision)
-
-
-sorted_segment_sum.launches = 0

@@ -48,8 +48,9 @@ gather windows, prebuilt one-hots and tile padding are not needed: Hopper
 gathers rows natively.
 
 Each kernel wrapper runs its kernel on CUDA tensors and its plain PyTorch
-version (``*_reference``) on CPU tensors, and counts its kernel launches
-in ``<wrapper>.launches`` (:func:`launch_counts`).
+version (``*_reference``) on CPU tensors (``_build.kernel_device``), and
+launches through ``_build.launch``, which counts the call under the
+wrapper's name (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -62,10 +63,11 @@ import numpy as np
 import torch
 
 from gnn_fpga_tpu_torch.core.graph import TensorFields
+# the counters are _build's; port_bench reads them from here
+from gnn_fpga_tpu_torch.ops.cuda._build import (  # noqa: F401
+    add_launch_counts, alignment, check_cuda, check_widths, grad_as,
+    kernel_device, launch, launch_counts, reset_launch_counts)
 from gnn_fpga_tpu_torch.ops.segment import segment_sum
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_WIDTH = 256   # 8 row chunks of 32 lanes in csrc/
 
 
 @dataclasses.dataclass(frozen=True)
@@ -664,7 +666,7 @@ def row_launch(width: int, dtype, align: int = 16,
                lane_elems: int | None = None) -> RowLaunch:
     """The :class:`RowLaunch` for rows of ``width`` elements of ``dtype``
     in tables whose base addresses are multiples of ``align`` bytes
-    (:func:`_alignment`): the widest item, at most 16 bytes, that divides
+    (``_build.alignment``): the widest item, at most 16 bytes, that divides
     the row and ``align``; the fewest lanes that hold a row in one item a
     lane, or, for rows of more than 32 items, in at most 8.  H = 64 is one
     16-byte item on each of 8 lanes in bf16, of 16 lanes in f32; the
@@ -689,17 +691,6 @@ def row_launch(width: int, dtype, align: int = 16,
         item = elem
         log = (min(32, -(-width // lane_elems)) - 1).bit_length()
     return RowLaunch(item_bytes=item, log_lanes=log)
-
-
-def _alignment(*tensors) -> int:
-    """The largest power of two, at most 16, that divides the base address
-    of every tensor (an empty tensor's null address divides by all)."""
-    align = 16
-    for t in tensors:
-        ptr = t.data_ptr()
-        if ptr:
-            align = min(align, ptr & -ptr)
-    return align
 
 
 def walk_blocks(n_item: int, sm_count: int) -> int:
@@ -849,55 +840,28 @@ def sddmm_dual_reference(p, q, u, v, seg_ids, oth_ids):
 
 
 # ---------------------------------------------------------------------------
-# Checks and launch plumbing
+# Operand checks
 # ---------------------------------------------------------------------------
 
-def _check_cuda(device, dtype, **tensors):
-    """Device, dtype and contiguity checks before passing raw pointers."""
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_plan(name, plan: EdgePlan, device, n_node: int):
+def check_plan(name, plan: EdgePlan, device, n_node: int):
+    """``plan`` is for ``n_node`` nodes, its arrays int32 on ``device``."""
     if plan.n_node != n_node:
         raise ValueError(f"{name}: plan is for {plan.n_node} nodes, tables "
                          f"for {n_node}")
-    _check_cuda(device, torch.int32, seg_ptr=plan.seg_ptr,
-                sorted_oth=plan.sorted_oth, order=plan.order,
-                long_seg=plan.long_seg)
+    check_cuda(device, torch.int32, seg_ptr=plan.seg_ptr,
+               sorted_oth=plan.sorted_oth, order=plan.order,
+               long_seg=plan.long_seg)
 
 
-def _check_plans(plans: AggPlans, device, n_node: int):
+def check_plans(plans: AggPlans, device, n_node: int):
     if plans.send.n_edge != plans.recv.n_edge:
         raise ValueError("recv and send plans differ in their edge count")
-    _check_plan("recv plan", plans.recv, device, n_node)
-    _check_plan("send plan", plans.send, device, n_node)
-    _check_cuda(device, torch.int32, send_in_recv=plans.send_in_recv)
+    check_plan("recv plan", plans.recv, device, n_node)
+    check_plan("send plan", plans.send, device, n_node)
+    check_cuda(device, torch.int32, send_in_recv=plans.send_in_recv)
 
 
-def _kernel_device(h, name):
-    """Tables on the CPU take the plain version (None); anything other
-    than a CUDA device is refused rather than falling back."""
-    if h.device.type == "cpu":
-        return None
-    if h.device.type != "cuda":
-        raise ValueError(f"{name}: tensors on {h.device}, expected CPU or CUDA")
-    if h.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: unsupported dtype {h.dtype}")
-    return h.device
-
-
-def _check_widths(name, *widths):
-    if max(widths) > _MAX_WIDTH:
-        raise ValueError(f"{name}: widths above {_MAX_WIDTH}")
-
-
-def _check_iteration(name, pa, pb, h, em_sorted, w2, b1, b2, plans, **grads):
+def check_iteration(name, pa, pb, h, em_sorted, w2, b1, b2, plans, **grads):
     """Shapes, dtypes and devices of :func:`iteration_pair`'s arguments
     (and its output gradients) before a kernel launch."""
     dev = h.device
@@ -908,33 +872,14 @@ def _check_iteration(name, pa, pb, h, em_sorted, w2, b1, b2, plans, **grads):
             or em_sorted.shape != (plans.recv.n_edge,)
             or any(g.shape != (v, d) for g in grads.values())):
         raise ValueError(f"{name}: inconsistent shapes")
-    _check_widths(name, d, hdim)
-    _check_cuda(dev, h.dtype, pa=pa, pb=pb, h=h, w2=w2, b1=b1, b2=b2,
-                **grads)
-    _check_cuda(dev, torch.float32, em_sorted=em_sorted)
-    _check_plans(plans, dev, v)
+    check_widths(name, d, hdim)
+    check_cuda(dev, h.dtype, pa=pa, pb=pb, h=h, w2=w2, b1=b1, b2=b2,
+               **grads)
+    check_cuda(dev, torch.float32, em_sorted=em_sorted)
+    check_plans(plans, dev, v)
     it = plans.items
-    _check_cuda(dev, torch.int32, sorted_seg=plans.recv.sorted_seg,
-                items=it.items, splits=it.splits)
-
-
-def _raise_on_error(code: int, name: str):
-    if code != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch "
-                           f"(cudaError_t {code})")
-
-
-def _ptr(t):
-    return t.data_ptr()
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _lib():
-    from gnn_fpga_tpu_torch.ops.cuda._build import load_library
-    return load_library()
+    check_cuda(dev, torch.int32, sorted_seg=plans.recv.sorted_seg,
+               items=it.items, splits=it.splits)
 
 
 def _plan_args(plans: AggPlans) -> tuple:
@@ -942,8 +887,8 @@ def _plan_args(plans: AggPlans) -> tuple:
     CSR offsets, other endpoints, edge order, long segments and their
     count."""
     return tuple(x for p in (plans.recv, plans.send)
-                 for x in (_ptr(p.seg_ptr), _ptr(p.sorted_oth), _ptr(p.order),
-                           _ptr(p.long_seg), len(p.long_seg)))
+                 for x in (p.seg_ptr, p.sorted_oth, p.order, p.long_seg,
+                           len(p.long_seg)))
 
 
 # ---------------------------------------------------------------------------
@@ -956,58 +901,58 @@ def iteration_pair_fwd(pa, pb, h, em_sorted, w2, b1, b2, plans: AggPlans):
     recv plan's order, which :func:`iteration_pair_bwd` takes on the card
     (None on the CPU, whose backward recomputes them).  On CUDA tensors a
     score pass over the edges, a walk over the work items and, when a node
-    is split, a combine pass: 2-3 CUDA launches, counted as one in
-    ``iteration_pair.launches``."""
-    if _kernel_device(h, "iteration_pair") is None:
+    is split, a combine pass: 2-3 CUDA launches, counted as one
+    ``iteration_pair``."""
+    if kernel_device(h, "iteration_pair") is None:
         r = plans.recv
         mi, mo = iteration_pair_reference(pa, pb, h, em_sorted, w2, b1, b2,
                                           r.sorted_oth, r.sorted_seg,
                                           h.shape[0])
         return mi.to(h.dtype), mo.to(h.dtype), None
-    _check_iteration("iteration_pair", pa, pb, h, em_sorted, w2, b1, b2,
-                     plans)
+    check_iteration("iteration_pair", pa, pb, h, em_sorted, w2, b1, b2,
+                    plans)
     v, d = h.shape
     hdim = pa.shape[1]
     n_edge = plans.recv.n_edge
     it = plans.items
     la = iteration_launch(n_edge, d, hdim, h.dtype,
-                          _alignment(pa, pb, w2, b1) >= 16,
-                          _alignment(h) >= 2 * h.element_size())
+                          alignment(pa, pb, w2, b1) >= 16,
+                          alignment(h) >= 2 * h.element_size())
     f32 = dict(dtype=torch.float32, device=h.device)
     e_sorted, sig = torch.empty(n_edge, **f32), torch.empty(n_edge, **f32)
     partial = torch.empty((max(it.n_slot, 1), d), **f32)
     mi = torch.empty_like(h)
     mo = torch.empty_like(h)
-    code = _lib().gnn_iteration_pair_fwd(
-        _DTYPE_CODES[h.dtype], n_edge, d, hdim, int(la.vec_h),
-        int(la.vec_d), la.log_lanes, la.edge_blocks, _ptr(pa), _ptr(pb),
-        _ptr(h), _ptr(em_sorted), _ptr(plans.send_in_recv), _ptr(w2),
-        _ptr(b1), _ptr(b2), _ptr(plans.recv.sorted_oth),
-        _ptr(plans.recv.sorted_seg), _ptr(plans.send.sorted_oth),
-        _ptr(it.items), it.n_item, it.n_recv,
-        _ptr(it.splits), it.n_split, _ptr(e_sorted), _ptr(sig), _ptr(partial),
-        _ptr(mi), _ptr(mo), _stream(h))
-    _raise_on_error(code, "gnn_iteration_pair_fwd")
-    iteration_pair.launches += 1
+    launch("gnn_iteration_pair_fwd", h.dtype, n_edge, d, hdim, int(la.vec_h),
+           int(la.vec_d), la.log_lanes, la.edge_blocks, pa, pb, h, em_sorted,
+           plans.send_in_recv, w2, b1, b2, plans.recv.sorted_oth,
+           plans.recv.sorted_seg, plans.send.sorted_oth, it.items, it.n_item,
+           it.n_recv, it.splits, it.n_split, e_sorted, sig, partial, mi, mo,
+           count="iteration_pair")
     return mi, mo, sig
 
 
 def _aggregate_pair_fwd(h, w, plans):
-    if h.device.type == "cpu":
+    dev = kernel_device(h, "aggregate_pair")
+    if dev is None:
         r = plans.recv
         mi, mo = aggregate_pair_reference(h, sort_edge_weights(w, r),
                                           r.sorted_oth, r.sorted_seg,
                                           h.shape[0])
         return mi.to(h.dtype), mo.to(h.dtype)
     v, d = h.shape
+    if w.shape != (plans.recv.n_edge,):
+        raise ValueError("aggregate_pair: w must be [E]")
+    check_widths("aggregate_pair", d)
+    check_cuda(dev, h.dtype, h=h)
+    check_cuda(dev, torch.float32, w=w)
+    check_plans(plans, dev, v)
     mi = torch.empty_like(h)
     mo = torch.empty_like(h)
-    la = row_launch(d, h.dtype, _alignment(h, mi, mo))
-    code = _lib().gnn_aggregate_pair_fwd(
-        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
-        _ptr(w), *_plan_args(plans), _ptr(mi), _ptr(mo), _stream(h))
-    _raise_on_error(code, "gnn_aggregate_pair_fwd")
-    aggregate_pair.launches += 1
+    la = row_launch(d, h.dtype, alignment(h, mi, mo))
+    launch("gnn_aggregate_pair_fwd", h.dtype, v, d, la.item_bytes,
+           la.log_lanes, h, w, *_plan_args(plans), mi, mo,
+           count="aggregate_pair")
     return mi, mo
 
 
@@ -1022,10 +967,9 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
     pass over the recv items (each edge's ``dlogit``, ``dpb``, the recv
     part of ``dh``), a pass over the send items (``dpa``, ``dh``, the
     parameter sums) and one that finishes the parameter sums and the split
-    nodes' rows (3 CUDA launches, counted as one in
-    ``iteration_pair_bwd.launches``); z is recomputed from the V-sized
-    inputs on both passes."""
-    dev = _kernel_device(h, "iteration_pair_bwd")
+    nodes' rows (3 CUDA launches, counted as one ``iteration_pair_bwd``);
+    z is recomputed from the V-sized inputs on both passes."""
+    dev = kernel_device(h, "iteration_pair_bwd")
     if dev is None:
         r = plans.recv
         ids = (r.sorted_oth, r.sorted_seg, h.shape[0])
@@ -1037,33 +981,33 @@ def iteration_pair_bwd(pa, pb, h, em_sorted, w2, b1, b2, g_mi, g_mo,
                 pa, pb, h, em_sorted, w2, b1, sig_sorted, g_mi, g_mo, *ids)
         out = out[:-1] + (out[-1].reshape(b2.shape),)
         return tuple(t.to(h.dtype) for t in out)
-    _check_iteration("iteration_pair_bwd", pa, pb, h, em_sorted, w2, b1, b2,
-                     plans, g_mi=g_mi, g_mo=g_mo)
+    check_iteration("iteration_pair_bwd", pa, pb, h, em_sorted, w2, b1, b2,
+                    plans, g_mi=g_mi, g_mo=g_mo)
     if sig_sorted is None or sig_sorted.shape != em_sorted.shape:
         raise ValueError("iteration_pair_bwd: sig_sorted, the forward's [E] "
                          "edge scores, is required on the card")
-    _check_cuda(dev, torch.float32, sig_sorted=sig_sorted)
-    out = _launch_iteration_bwd("gnn_iteration_pair_bwd", sig_sorted, pa, pb,
-                                h, em_sorted, w2, b1, b2, g_mi, g_mo, plans)
-    iteration_pair_bwd.launches += 1
-    return out
+    check_cuda(dev, torch.float32, sig_sorted=sig_sorted)
+    return launch_iteration_bwd("gnn_iteration_pair_bwd",
+                                "iteration_pair_bwd", sig_sorted, pa, pb, h,
+                                em_sorted, w2, b1, b2, g_mi, g_mo, plans)
 
 
-def _launch_iteration_bwd(entry, scores, pa, pb, h, em_sorted, w2, b1, b2,
-                          g_mi, g_mo, plans: AggPlans) -> tuple:
-    """One launch of ``csrc/iteration_bwd.cu``'s C ``entry`` on checked
-    CUDA tensors: ``gnn_iteration_pair_bwd`` with ``scores`` the
-    forward's [E] f32 edge scores, or the probes' variant
-    ``gnn_iteration_pair_bwd_recompute`` with ``scores`` = ``b2``, which
-    forms them itself.  Returns ``(dh, dpa, dpb, dw2, db1, db2)``."""
+def launch_iteration_bwd(symbol, count, scores, pa, pb, h, em_sorted, w2,
+                         b1, b2, g_mi, g_mo, plans: AggPlans) -> tuple:
+    """One call of ``csrc/iteration_bwd.cu``'s C function ``symbol`` on
+    checked CUDA tensors (:func:`check_iteration`), counted as ``count``:
+    ``gnn_iteration_pair_bwd`` with ``scores`` the forward's [E] f32 edge
+    scores, or the probes' variant ``gnn_iteration_pair_bwd_recompute``
+    with ``scores`` = ``b2``, which forms them itself.  Returns ``(dh,
+    dpa, dpb, dw2, db1, db2)``."""
     dev = h.device
     v, d = h.shape
     hdim = pa.shape[1]
     n_edge = plans.recv.n_edge
     it = plans.items
     la = iteration_launch(n_edge, d, hdim, h.dtype,
-                          _alignment(pa, pb, w2, b1) >= 16,
-                          _alignment(h, g_mi, g_mo) >= 2 * h.element_size())
+                          alignment(pa, pb, w2, b1) >= 16,
+                          alignment(h, g_mi, g_mo) >= 2 * h.element_size())
     f32 = dict(dtype=torch.float32, device=dev)
     n_slot = max(it.n_slot, 1)
     e_sorted, dl = (torch.empty(n_edge, **f32),
@@ -1078,18 +1022,13 @@ def _launch_iteration_bwd(entry, scores, pa, pb, h, em_sorted, w2, b1, b2,
                     torch.empty_like(pb))
     dw2, db1, db2 = (torch.empty_like(w2), torch.empty_like(b1),
                      torch.empty_like(b2))
-    code = getattr(_lib(), entry)(
-        _DTYPE_CODES[h.dtype], n_edge, d, hdim, la.bwd_h_bytes,
-        int(la.vec_d), la.bwd_log_lanes, send_blocks, la.recv_chunk,
-        la.send_chunk, la.slot_h, la.slot_d, _ptr(pa), _ptr(pb),
-        _ptr(h), _ptr(em_sorted), _ptr(scores),
-        _ptr(plans.send_in_recv), _ptr(w2), _ptr(b1), _ptr(g_mi), _ptr(g_mo),
-        _ptr(plans.recv.sorted_oth),
-        _ptr(plans.send.sorted_oth), _ptr(it.items), it.n_item, it.n_recv,
-        _ptr(it.splits), it.n_split, _ptr(e_sorted), _ptr(dl),
-        _ptr(dh_recv), _ptr(param), _ptr(hpart), _ptr(dpart), _ptr(dh),
-        _ptr(dpa), _ptr(dpb), _ptr(dw2), _ptr(db1), _ptr(db2), _stream(h))
-    _raise_on_error(code, entry)
+    launch(symbol, h.dtype, n_edge, d, hdim, la.bwd_h_bytes, int(la.vec_d),
+           la.bwd_log_lanes, send_blocks, la.recv_chunk, la.send_chunk,
+           la.slot_h, la.slot_d, pa, pb, h, em_sorted, scores,
+           plans.send_in_recv, w2, b1, g_mi, g_mo, plans.recv.sorted_oth,
+           plans.send.sorted_oth, it.items, it.n_item, it.n_recv, it.splits,
+           it.n_split, e_sorted, dl, dh_recv, param, hpart, dpart, dh, dpa,
+           dpb, dw2, db1, db2, count=count)
     return dh, dpa, dpb, dw2, db1, db2
 
 
@@ -1097,7 +1036,7 @@ def aggregate_pair_bwd(h, w, g_mi, g_mo, plans: AggPlans):
     """VJP of :func:`aggregate_pair` in one kernel launch: ``(dh, dw)``,
     ``dh`` in ``h.dtype``, ``dw`` [E] f32 in EDGE order.  ``w`` is [E] f32
     in edge order; ``g_mi``/``g_mo`` are [V, D] in ``h.dtype``."""
-    dev = _kernel_device(h, "aggregate_pair_bwd")
+    dev = kernel_device(h, "aggregate_pair_bwd")
     if dev is None:
         r = plans.recv
         dh, dw = aggregate_pair_bwd_reference(
@@ -1108,34 +1047,31 @@ def aggregate_pair_bwd(h, w, g_mi, g_mo, plans: AggPlans):
     if (w.shape != (plans.recv.n_edge,) or g_mi.shape != (v, d)
             or g_mo.shape != (v, d)):
         raise ValueError("aggregate_pair_bwd: inconsistent shapes")
-    _check_widths("aggregate_pair_bwd", d)
-    _check_cuda(dev, h.dtype, h=h, g_mi=g_mi, g_mo=g_mo)
-    _check_cuda(dev, torch.float32, w=w)
-    _check_plans(plans, dev, v)
+    check_widths("aggregate_pair_bwd", d)
+    check_cuda(dev, h.dtype, h=h, g_mi=g_mi, g_mo=g_mo)
+    check_cuda(dev, torch.float32, w=w)
+    check_plans(plans, dev, v)
     dh = torch.empty_like(h)
     dw = torch.empty_like(w)
-    la = row_launch(d, h.dtype, _alignment(h, g_mi, g_mo, dh),
+    la = row_launch(d, h.dtype, alignment(h, g_mi, g_mo, dh),
                     lane_elems=AGG_BWD_LANE_ELEMS)
-    code = _lib().gnn_aggregate_pair_bwd(
-        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
-        _ptr(w), _ptr(g_mi), _ptr(g_mo), *_plan_args(plans), _ptr(dh),
-        _ptr(dw), _stream(h))
-    _raise_on_error(code, "gnn_aggregate_pair_bwd")
-    aggregate_pair_bwd.launches += 1
+    launch("gnn_aggregate_pair_bwd", h.dtype, v, d, la.item_bytes,
+           la.log_lanes, h, w, g_mi, g_mo, *_plan_args(plans), dh, dw,
+           count="aggregate_pair_bwd")
     return dh, dw
 
 
 def gather_pair_fwd(pa, pb, senders, receivers):
     """``out[e] = pa[senders[e]] + pb[receivers[e]]`` [E, H] in the
     tables' dtype, EDGE order, in one kernel launch, no VJP attached
-    (:func:`gather_pair` adds it); counted in ``gather_pair.launches``.
+    (:func:`gather_pair` adds it); counted as ``gather_pair``.
     Each element is rounded once from the f32 sum, as the plain version's
     add rounds it, so the two agree bit for bit.  ``pa``/``pb``: [V, H];
     ``senders``/``receivers``: [E] int32 ids in [0, V).  An id outside
     [0, V) raises ``IndexError`` on the CPU; on the card it stops the
     kernel at a device-side assert, as ``index_select`` does there, and
     the error surfaces at the next synchronisation."""
-    dev = _kernel_device(pa, "gather_pair")
+    dev = kernel_device(pa, "gather_pair")
     if dev is None:
         return gather_pair_reference(pa, pb, senders, receivers)
     if (pa.ndim != 2 or pb.shape != pa.shape or senders.ndim != 1
@@ -1143,68 +1079,59 @@ def gather_pair_fwd(pa, pb, senders, receivers):
         raise ValueError("gather_pair: pa and pb must be [V, H] alike, "
                          "senders and receivers [E]")
     n_node, hdim = pa.shape
-    _check_widths("gather_pair", hdim)
-    _check_cuda(dev, pa.dtype, pa=pa, pb=pb)
-    _check_cuda(dev, torch.int32, senders=senders, receivers=receivers)
+    check_widths("gather_pair", hdim)
+    check_cuda(dev, pa.dtype, pa=pa, pb=pb)
+    check_cuda(dev, torch.int32, senders=senders, receivers=receivers)
     out = torch.empty((senders.shape[0], hdim), dtype=pa.dtype, device=dev)
-    code = _lib().gnn_gather_pair_fwd(
-        _DTYPE_CODES[pa.dtype], senders.shape[0], n_node, hdim, _ptr(pa),
-        _ptr(pb), _ptr(senders), _ptr(receivers), _ptr(out), _stream(pa))
-    _raise_on_error(code, "gnn_gather_pair_fwd")
-    gather_pair.launches += 1
+    launch("gnn_gather_pair_fwd", pa.dtype, senders.shape[0], n_node, hdim,
+           pa, pb, senders, receivers, out, count="gather_pair")
     return out
 
 
 def gather_pair_bwd(g, plans: AggPlans):
     """VJP of :func:`gather_pair` in one kernel launch: ``(dpa, dpb)``
     [V, H] in ``g.dtype``, from ``g`` [E, H] in EDGE order."""
-    n_node = plans.recv.n_node
-    dev = _kernel_device(g, "gather_pair_bwd")
+    dev = kernel_device(g, "gather_pair_bwd")
     if dev is None:
         r = plans.recv
         dpa, dpb = gather_pair_bwd_reference(g.index_select(0, r.order),
                                              r.sorted_oth, r.sorted_seg,
-                                             n_node)
+                                             r.n_node)
         return dpa.to(g.dtype), dpb.to(g.dtype)
-    out = _segment_rows_pair(g, plans, dev, "gather_pair_bwd")
-    gather_pair_bwd.launches += 1
-    return out
+    return _segment_rows_pair(g, plans, dev, "gather_pair_bwd")
 
 
 def _segment_rows_pair(g, plans: AggPlans, dev, name):
-    """``csrc/spmm_bwd.cu``'s ``gnn_gather_pair_bwd`` on checked CUDA
-    operands, uncounted: ``(sum_{s==n} g, sum_{r==n} g)`` [V, H] in
+    """``csrc/spmm_bwd.cu``'s ``gnn_gather_pair_bwd`` on CUDA operands,
+    counted as ``name``: ``(sum_{s==n} g, sum_{r==n} g)`` [V, H] in
     ``g.dtype``."""
     n_node = plans.recv.n_node
     if g.ndim != 2 or g.shape[0] != plans.recv.n_edge:
         raise ValueError(f"{name}: g must be [E, H]")
     hdim = g.shape[1]
-    _check_widths(name, hdim)
-    _check_cuda(dev, g.dtype, g=g)
-    _check_plans(plans, dev, n_node)
+    check_widths(name, hdim)
+    check_cuda(dev, g.dtype, g=g)
+    check_plans(plans, dev, n_node)
     dpa = torch.empty((n_node, hdim), dtype=g.dtype, device=dev)
     dpb = torch.empty_like(dpa)
-    la = row_launch(hdim, g.dtype, _alignment(g, dpa, dpb))
-    code = _lib().gnn_gather_pair_bwd(
-        _DTYPE_CODES[g.dtype], n_node, hdim, la.item_bytes, la.log_lanes,
-        _ptr(g), *(x for p in (plans.recv, plans.send)
-                   for x in (_ptr(p.seg_ptr), _ptr(p.order),
-                             _ptr(p.long_seg), len(p.long_seg))),
-        _ptr(dpa), _ptr(dpb), _stream(g))
-    _raise_on_error(code, "gnn_gather_pair_bwd")
+    la = row_launch(hdim, g.dtype, alignment(g, dpa, dpb))
+    launch("gnn_gather_pair_bwd", g.dtype, n_node, hdim, la.item_bytes,
+           la.log_lanes, g, *(x for p in (plans.recv, plans.send)
+                              for x in (p.seg_ptr, p.order, p.long_seg,
+                                        len(p.long_seg))),
+           dpa, dpb, count=name)
     return dpa, dpb
 
 
 def _edge_sum_fwd(e, senders, receivers, plans: AggPlans):
     """:func:`edge_sum`'s forward, no VJP attached: one launch of
-    :func:`gather_pair_bwd`'s kernel, its two halves added (counted in
-    ``edge_sum.launches``); the plain version on CPU tensors."""
-    dev = _kernel_device(e, "edge_sum")
+    :func:`gather_pair_bwd`'s kernel, its two halves added (counted as
+    ``edge_sum``); the plain version on CPU tensors."""
+    dev = kernel_device(e, "edge_sum")
     if dev is None:
         return edge_sum_reference(e, senders, receivers,
                                   plans.recv.n_node).to(e.dtype)
     by_send, by_recv = _segment_rows_pair(e, plans, dev, "edge_sum")
-    edge_sum.launches += 1
     return by_send.add_(by_recv)
 
 
@@ -1215,32 +1142,28 @@ def spmm_raw(h, w, plan: EdgePlan):
     through the plan's ``order``).  Returns [V, D] in ``h.dtype``, each
     element rounded once from its f32 sum."""
     w = w.float()
-    dev = _kernel_device(h, "spmm")
+    dev = kernel_device(h, "spmm")
     if dev is None:
         return spmm_reference(h, sort_edge_weights(w, plan), plan.sorted_seg,
                               plan.sorted_oth, plan.n_node).to(h.dtype)
     v, d = h.shape
     if w.shape != (plan.n_edge,):
         raise ValueError("spmm: w must be [E]")
-    _check_widths("spmm", d)
-    _check_cuda(dev, h.dtype, h=h)
-    _check_cuda(dev, torch.float32, w=w)
-    _check_plan("spmm", plan, dev, v)
+    check_widths("spmm", d)
+    check_cuda(dev, h.dtype, h=h)
+    check_cuda(dev, torch.float32, w=w)
+    check_plan("spmm", plan, dev, v)
     out = torch.empty_like(h)
-    la = row_launch(d, h.dtype, _alignment(h, out))
-    code = _lib().gnn_spmm(
-        _DTYPE_CODES[h.dtype], v, d, la.item_bytes, la.log_lanes, _ptr(h),
-        _ptr(w), _ptr(plan.seg_ptr), _ptr(plan.sorted_oth), _ptr(plan.order),
-        _ptr(plan.long_seg), len(plan.long_seg), _ptr(out), _stream(h))
-    _raise_on_error(code, "gnn_spmm")
-    spmm.launches += 1
+    la = row_launch(d, h.dtype, alignment(h, out))
+    launch("gnn_spmm", h.dtype, v, d, la.item_bytes, la.log_lanes, h, w,
+           plan.seg_ptr, plan.sorted_oth, plan.order, plan.long_seg,
+           len(plan.long_seg), out, count="spmm")
     return out
 
 
 def _sddmm(name, plan: EdgePlan, a, b, u=None, v=None):
     """:func:`sddmm`, or :func:`sddmm_dual` with ``u`` and ``v``."""
-    wrapper = sddmm if u is None else sddmm_dual
-    dev = _kernel_device(a, name)
+    dev = kernel_device(a, name)
     if dev is None:
         out = sddmm_reference(a, b, plan.sorted_seg, plan.sorted_oth)
         if u is not None:
@@ -1251,18 +1174,14 @@ def _sddmm(name, plan: EdgePlan, a, b, u=None, v=None):
     n, d = a.shape
     if any(t.shape != (n, d) for t in tabs.values()):
         raise ValueError(f"{name}: the tables must all be [V, D]")
-    _check_widths(name, d)
-    _check_cuda(dev, a.dtype, **tabs)
-    _check_plan(name, plan, dev, n)
+    check_widths(name, d)
+    check_cuda(dev, a.dtype, **tabs)
+    check_plan(name, plan, dev, n)
     out = torch.empty(plan.n_edge, dtype=torch.float32, device=dev)
-    la = row_launch(d, a.dtype, _alignment(*tabs.values()))
-    code = getattr(_lib(), f"gnn_{name}")(
-        _DTYPE_CODES[a.dtype], n, d, la.item_bytes, la.log_lanes,
-        *map(_ptr, tabs.values()), _ptr(plan.seg_ptr), _ptr(plan.sorted_oth),
-        _ptr(plan.order), _ptr(plan.long_seg), len(plan.long_seg),
-        _ptr(out), _stream(a))
-    _raise_on_error(code, f"gnn_{name}")
-    wrapper.launches += 1
+    la = row_launch(d, a.dtype, alignment(*tabs.values()))
+    launch(f"gnn_{name}", a.dtype, n, d, la.item_bytes, la.log_lanes,
+           *tabs.values(), plan.seg_ptr, plan.sorted_oth, plan.order,
+           plan.long_seg, len(plan.long_seg), out, count=name)
     return out
 
 
@@ -1288,12 +1207,6 @@ def sddmm_dual(p, q, u, v, plan: EdgePlan):
 # Autograd Functions: the kernels forward and backward
 # ---------------------------------------------------------------------------
 
-def _grad_as(g, dtype):
-    """An output gradient as a kernel operand: in ``dtype``, contiguous
-    (autograd hands column slices of a concatenation's gradient)."""
-    return g.to(dtype).contiguous()
-
-
 class _IterationPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pa, pb, h, em_sorted, w2, b1, b2, plans):
@@ -1307,8 +1220,8 @@ class _IterationPair(torch.autograd.Function):
     def backward(ctx, g_mi, g_mo):
         pa, pb, h, em_sorted, w2, b1, b2 = ctx.saved_tensors
         dh, dpa, dpb, dw2, db1, db2 = iteration_pair_bwd(
-            pa, pb, h, em_sorted, w2, b1, b2, _grad_as(g_mi, h.dtype),
-            _grad_as(g_mo, h.dtype), ctx.plans, ctx.sig)
+            pa, pb, h, em_sorted, w2, b1, b2, grad_as(g_mi, h.dtype),
+            grad_as(g_mo, h.dtype), ctx.plans, ctx.sig)
         return dpa, dpb, dh, None, dw2, db1, db2, None
 
 
@@ -1322,8 +1235,8 @@ class _AggregatePair(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_mi, g_mo):
         h, w = ctx.saved_tensors
-        dh, dw = aggregate_pair_bwd(h, w, _grad_as(g_mi, h.dtype),
-                                    _grad_as(g_mo, h.dtype), ctx.plans)
+        dh, dw = aggregate_pair_bwd(h, w, grad_as(g_mi, h.dtype),
+                                    grad_as(g_mo, h.dtype), ctx.plans)
         return dh, dw, None
 
 
@@ -1336,7 +1249,7 @@ class _GatherPair(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dpa, dpb = gather_pair_bwd(_grad_as(g, ctx.dtypes[0]), ctx.plans)
+        dpa, dpb = gather_pair_bwd(grad_as(g, ctx.dtypes[0]), ctx.plans)
         return dpa, dpb.to(ctx.dtypes[1]), None, None, None
 
 
@@ -1350,7 +1263,7 @@ class _EdgeSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         senders, receivers = ctx.saved_tensors
-        g = _grad_as(g, ctx.dtype)
+        g = grad_as(g, ctx.dtype)
         return gather_pair_fwd(g, g, senders, receivers), None, None, None
 
 
@@ -1365,7 +1278,7 @@ class _Spmm(torch.autograd.Function):
     def backward(ctx, g):
         h, w = ctx.saved_tensors
         plan, plan_t = ctx.plans
-        g = _grad_as(g, h.dtype)
+        g = grad_as(g, h.dtype)
         return spmm_raw(g, w, plan_t), sddmm(g, h, plan), None, None
 
 
@@ -1392,17 +1305,7 @@ def aggregate_pair(h, w, plans: AggPlans):
     """Fused edge-weighted neighbour aggregation, both directions, in one
     kernel launch, forward and backward.  ``w``: [E] weights in EDGE
     order, mask included.  Returns ``(mi, mo)`` [V, D] in ``h.dtype``."""
-    dev = _kernel_device(h, "aggregate_pair")
-    w = w.float()
-    if dev is not None:
-        v, d = h.shape
-        if w.shape != (plans.recv.n_edge,):
-            raise ValueError("aggregate_pair: w must be [E]")
-        _check_widths("aggregate_pair", d)
-        _check_cuda(dev, h.dtype, h=h)
-        _check_cuda(dev, torch.float32, w=w)
-        _check_plans(plans, dev, v)
-    return _AggregatePair.apply(h, w, plans)
+    return _AggregatePair.apply(h, w.float(), plans)
 
 
 def gather_pair(pa, pb, senders, receivers, plans: AggPlans):
@@ -1411,14 +1314,14 @@ def gather_pair(pa, pb, senders, receivers, plans: AggPlans):
     forward, a row gather, is one kernel launch (:func:`gather_pair_fwd`);
     the backward, two [E, H]-row segment sums, is another
     (:func:`gather_pair_bwd`)."""
-    dev = _kernel_device(pa, "gather_pair")
+    dev = kernel_device(pa, "gather_pair")
     if dev is not None:
         if pb.dtype != pa.dtype or pb.shape != pa.shape:
             raise ValueError("gather_pair: pa and pb must match")
         if senders.shape != (plans.recv.n_edge,):
             raise ValueError("gather_pair: senders and plans differ in "
                              "their edge count")
-        _check_plans(plans, dev, pa.shape[0])
+        check_plans(plans, dev, pa.shape[0])
     return _GatherPair.apply(pa, pb, senders, receivers, plans)
 
 
@@ -1430,7 +1333,7 @@ def edge_sum(e, senders, receivers, plans: AggPlans):
     launch of :func:`gather_pair_bwd`'s kernel, whose two halves are
     added; the backward, ``g[s] + g[r]``, is one :func:`gather_pair_fwd`
     launch."""
-    dev = _kernel_device(e, "edge_sum")
+    dev = kernel_device(e, "edge_sum")
     if dev is not None and (senders.shape != (plans.recv.n_edge,)
                             or receivers.shape != senders.shape):
         raise ValueError("edge_sum: senders, receivers and plans differ in "
@@ -1448,60 +1351,3 @@ def spmm(h, w, plan: EdgePlan, plan_t: EdgePlan):
         raise ValueError("spmm: plan_t must be the transpose of plan")
     w = w.float()
     return _Spmm.apply(h, w, plan, plan_t)
-
-
-iteration_pair.launches = 0
-aggregate_pair.launches = 0
-gather_pair.launches = 0
-iteration_pair_bwd.launches = 0
-aggregate_pair_bwd.launches = 0
-gather_pair_bwd.launches = 0
-edge_sum.launches = 0
-spmm.launches = 0
-sddmm.launches = 0
-sddmm_dual.launches = 0
-
-
-# Wrappers of other modules' kernels that count here too
-# (:func:`register_kernel_wrappers`).
-_REGISTERED_WRAPPERS: list = []
-
-
-def register_kernel_wrappers(*wrappers):
-    """Has :func:`launch_counts` and its kin cover ``wrappers`` (each
-    counting in ``<wrapper>.launches``): the probes' kernels
-    (``ops/cuda/probes.py``) register themselves when imported."""
-    _REGISTERED_WRAPPERS.extend(
-        f for f in wrappers if f not in _REGISTERED_WRAPPERS)
-
-
-def _kernel_wrappers() -> tuple:
-    from gnn_fpga_tpu_torch.ops.cuda.doublets import select_segments
-    from gnn_fpga_tpu_torch.ops.cuda.segment_sum import sorted_segment_sum
-
-    return (iteration_pair, aggregate_pair, gather_pair, iteration_pair_bwd,
-            aggregate_pair_bwd, gather_pair_bwd, edge_sum, spmm, sddmm,
-            sddmm_dual, sorted_segment_sum,
-            select_segments) + tuple(_REGISTERED_WRAPPERS)
-
-
-def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset, by name: the
-    wrappers of this module, :func:`~gnn_fpga_tpu_torch.ops.cuda.
-    segment_sum.sorted_segment_sum`, :func:`~gnn_fpga_tpu_torch.ops.
-    cuda.doublets.select_segments` and those registered by
-    :func:`register_kernel_wrappers`."""
-    return {f.__name__: f.launches for f in _kernel_wrappers()}
-
-
-def reset_launch_counts():
-    for f in _kernel_wrappers():
-        f.launches = 0
-
-
-def add_launch_counts(counts: dict):
-    """Adds ``counts`` (by wrapper name, as :func:`launch_counts` gives
-    them) to the wrappers' counts: a CUDA graph's replay launches the
-    kernels its capture recorded (``core/capture.py``)."""
-    for f in _kernel_wrappers():
-        f.launches += counts.get(f.__name__, 0)

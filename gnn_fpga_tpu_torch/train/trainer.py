@@ -598,18 +598,13 @@ class Trainer:
                 sum_loss += loss
             dt = time.perf_counter() - t0
             avg_loss = sum_loss / n_batches
-            self.train_losses.append(avg_loss)
             logger("  training loss %.3g time %gs" % (avg_loss, dt))
-            record = {"epoch": i, "train_loss": avg_loss, "time_s": dt}
+            vloss = None
             if valid_generator is not None and n_valid_batches > 0:
                 vloss = float(np.mean([self._eval_loss(next(valid_generator))
                                        for _ in range(n_valid_batches)]))
                 logger("  validate loss %.3g" % vloss)
-                record["valid_loss"] = vloss
-                self._end_epoch_valid(vloss)
-            elif self.ckpt is not None:
-                self.save_checkpoint(False)
-            self._write_metrics(record)
+            self._end_epoch(i, avg_loss, dt, vloss)
 
     def run_steps(self, stacked) -> np.ndarray:
         """One optimizer step per leading-axis slice of ``stacked`` (a
@@ -644,24 +639,28 @@ class Trainer:
             losses = self._run_step_calls(calls)
             dt = time.perf_counter() - t0
             avg_loss = float(losses.mean())
-            self.train_losses.append(avg_loss)
             if verbose > 0:
                 logger("Epoch %i training loss %.3g time %gs"
                        % (i, avg_loss, dt))
-            record = {"epoch": i, "train_loss": avg_loss, "time_s": dt}
-            if valid_batch is not None:
-                vloss = self._eval_loss(valid_batch)
-                record["valid_loss"] = vloss
-                self._end_epoch_valid(vloss)
-            elif self.ckpt is not None:
-                self.save_checkpoint(False)
-            self._write_metrics(record)
+            self._end_epoch(i, avg_loss, dt, None if valid_batch is None
+                            else self._eval_loss(valid_batch))
 
-    def _end_epoch_valid(self, vloss: float) -> None:
-        self.valid_losses.append(vloss)
-        is_best = vloss < self.best_valid_loss
-        self.best_valid_loss = min(vloss, self.best_valid_loss)
-        self.save_checkpoint(is_best)
+    def _end_epoch(self, epoch: int, avg_loss: float, dt: float,
+                   vloss: Optional[float] = None) -> None:
+        """The end of an epoch of :meth:`fit` or :meth:`fit_stacked`: the
+        losses recorded, the checkpoint saved (best by the validation loss
+        ``vloss``, where there is one) and the metrics line written."""
+        self.train_losses.append(avg_loss)
+        record = {"epoch": epoch, "train_loss": avg_loss, "time_s": dt}
+        if vloss is not None:
+            record["valid_loss"] = vloss
+            self.valid_losses.append(vloss)
+            is_best = vloss < self.best_valid_loss
+            self.best_valid_loss = min(vloss, self.best_valid_loss)
+            self.save_checkpoint(is_best)
+        elif self.ckpt is not None:
+            self.save_checkpoint(False)
+        self._write_metrics(record)
 
     def predict(self, generator: Iterator[Graph], n_batches: int,
                 concat: bool = True):

@@ -18,6 +18,7 @@ import torch
 
 from gnn_fpga_tpu_torch.core import graph as tg
 from gnn_fpga_tpu_torch.models import mpnn as tm
+from gnn_fpga_tpu_torch.ops.cuda import _build
 from gnn_fpga_tpu_torch.ops.cuda import probes as tpr
 from gnn_fpga_tpu_torch.ops.cuda import segment_sum as tss
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
@@ -67,7 +68,7 @@ def _case(seed, v, e, d, hdim, dev, dtype):
 @pytest.mark.parametrize("d,hdim", [(66, 64), (10, 12), (200, 40)])
 def test_kernels_match_plain_versions(dev, dtype, d, hdim):
     c = _case(19, 300, 2048, d, hdim, dev, dtype)
-    n_it, n_agg = tsp.iteration_pair.launches, tsp.aggregate_pair.launches
+    n0 = _build.launch_counts()
     got = tsp.iteration_pair(c["pa"], c["pb"], c["h"], c["ems"], c["w2"],
                              c["b1"], c["b2"], c["plans"])
     want = tsp.iteration_pair_reference(
@@ -77,8 +78,8 @@ def test_kernels_match_plain_versions(dev, dtype, d, hdim):
     want_a = tsp.aggregate_pair_reference(c["h"], c["w"], c["s"], c["r"],
                                           c["v"])
     torch.cuda.synchronize()
-    assert tsp.iteration_pair.launches == n_it + 1
-    assert tsp.aggregate_pair.launches == n_agg + 1
+    assert _build.launch_counts()["iteration_pair"] == n0["iteration_pair"] + 1
+    assert _build.launch_counts()["aggregate_pair"] == n0["aggregate_pair"] + 1
     for g, r in zip(got + got_a, want + want_a):
         assert g.dtype == dtype and g.shape == (c["v"], d)
         torch.testing.assert_close(g.float(), r.float(), **TOL[dtype])
@@ -110,10 +111,10 @@ def test_forward_on_kernel_route_matches_sparse_route(dev):
                                                       aggregation="sparse"),
                                   torch.Generator(), device=dev)
     sparse.load_state_dict(model.state_dict())
-    n0 = tsp.iteration_pair.launches
+    n0 = _build.launch_counts()["iteration_pair"]
     with torch.inference_mode():
         got, want = model(g), sparse(g)
-    assert tsp.iteration_pair.launches == n0 + cfg.n_iters
+    assert _build.launch_counts()["iteration_pair"] == n0 + cfg.n_iters
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -363,11 +364,11 @@ def test_gather_pair_fwd_equals_plain_bit_for_bit(dev, dtype, hdim, aligned):
     if not aligned:
         pa, pb = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
                   for t in (pa, pb))
-    n0 = tsp.gather_pair.launches
+    n0 = _build.launch_counts()["gather_pair"]
     got = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
     want = tsp.gather_pair_reference(pa, pb, c["s"], c["r"])
     torch.cuda.synchronize()
-    assert tsp.gather_pair.launches == n0 + 1
+    assert _build.launch_counts()["gather_pair"] == n0 + 1
     assert got.dtype == dtype and got.shape == (2001, hdim)
     assert torch.equal(got, want)
 
@@ -647,7 +648,7 @@ def test_row_kernels_match_plain_versions(dev, dtype, width, order, offset):
     shuffled; nodes without edges get zero rows."""
     c = _row_case(50, 300, 2048, width, dev, dtype, order=order,
                   offset=offset)
-    la = tsp.row_launch(width, dtype, tsp._alignment(
+    la = tsp.row_launch(width, dtype, _build.alignment(
         c["g"], c["a"], c["b"], c["u"], c["w"]))
     if offset == "element":
         assert la.item_bytes == dtype.itemsize
@@ -742,7 +743,8 @@ def test_aggregation_kernels_match_plain_versions(dev, dtype, width, kind,
     as allocated or one element in (narrow items)."""
     c = _row_case(53, 300, 2048, width, dev, dtype, kind=kind,
                   order="shuffled", offset=offset)
-    la = tsp.row_launch(width, dtype, tsp._alignment(c["a"], c["b"], c["u"]))
+    la = tsp.row_launch(width, dtype,
+                        _build.alignment(c["a"], c["b"], c["u"]))
     if offset == "element":
         assert la.item_bytes == dtype.itemsize
     mi, mo, dh = _check_agg(c, dtype)[:3]
@@ -834,10 +836,10 @@ def _check_segment_sum(c, dtype, precision="highest"):
     messages under "default"), one launch counted; the hub's 1,120-term
     sums cancel, so the atol takes PARAM_SUM_ATOL times the largest
     sum."""
-    n0 = tss.sorted_segment_sum.launches
+    n0 = _build.launch_counts()["sorted_segment_sum"]
     got = tss.sorted_segment_sum(c["m_sorted"], c["seg"], c["v"], precision)
     torch.cuda.synchronize()
-    assert tss.sorted_segment_sum.launches == n0 + 1
+    assert _build.launch_counts()["sorted_segment_sum"] == n0 + 1
     assert got.dtype == dtype and got.shape == (c["v"], c["m"].shape[1])
     m = c["m"].bfloat16() if precision == "default" else c["m"]
     want = segment_sum(m.double(), c["ids"].long(), c["v"]).float()
@@ -883,7 +885,7 @@ def test_segment_sum_on_a_view_off_16_byte_alignment(dev, dtype, offset):
     elems = {"row": 66, "3 rows": 3 * 66, "element": 1}[offset]
     c = _segment_case("padded", 62, 66, dev, dtype, elems)
     assert c["m_sorted"].data_ptr() % 16 != 0
-    la = tss.segment_launch(66, dtype, tsp._alignment(c["m_sorted"]))
+    la = tss.segment_launch(66, dtype, _build.alignment(c["m_sorted"]))
     assert la.unit == (1 if offset == "element" else 2)
     _check_segment_sum(c, dtype)
 
@@ -917,12 +919,12 @@ def test_gather_pair_fwd_repeats_bit_for_bit(dev, dtype, hdim, aligned):
     if not aligned:
         pa, pb = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
                   for t in (pa, pb))
-    n0 = tsp.gather_pair.launches
+    n0 = _build.launch_counts()["gather_pair"]
     got = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
     again = tsp.gather_pair_fwd(pa, pb, c["s"], c["r"])
     want = tsp.gather_pair_reference(pa, pb, c["s"], c["r"])
     torch.cuda.synchronize()
-    assert tsp.gather_pair.launches == n0 + 2
+    assert _build.launch_counts()["gather_pair"] == n0 + 2
     assert got.dtype == dtype and got.shape == (40_001, hdim)
     assert torch.equal(got, want) and torch.equal(got, again)
 
@@ -1061,6 +1063,17 @@ def test_a_consumer_that_keeps_every_staged_batch_reads_them_all(dev):
     for g, b in zip(kept, host):
         for x, y in zip(g.tensors(), b.tensors()):
             assert torch.equal(x.cpu(), y)
+
+
+def test_prefetching_a_batch_that_is_not_tensor_fields_raises(dev):
+    """The card's prefetcher stages TensorFields only: a plain tensor
+    raises ``TypeError`` naming its type."""
+    from gnn_fpga_tpu_torch.core.prefetch import prefetch_to_device
+
+    it = prefetch_to_device(iter([torch.ones(3)]), size=1, device=dev)
+    with pytest.raises(TypeError, match="Tensor"):
+        next(it)
+    it.close()
 
 
 @pytest.mark.parametrize("pinned", [True, False])
@@ -1712,10 +1725,10 @@ def test_capture_under_gloo_on_the_card_raises(dev, world_of_one):
 def test_passthrough_equals_x_times_two(dev, dtype, vectors, n):
     gen = torch.Generator().manual_seed(n % 1000)
     x = (torch.randn(n, generator=gen) * 100).to(dev, dtype)
-    n0 = tpr.passthrough.launches
+    n0 = _build.launch_counts()["passthrough"]
     got, again = tpr.passthrough(x, vectors), tpr.passthrough(x, vectors)
     torch.cuda.synchronize()
-    assert tpr.passthrough.launches == n0 + 2
+    assert _build.launch_counts()["passthrough"] == n0 + 2
     assert got.dtype == dtype and torch.equal(got, x * 2)
     assert torch.equal(got, again)
 
@@ -1727,12 +1740,12 @@ def test_gather_rows_equals_index_select(dev, dtype, d):
     v, e = 1000, 20000
     base = torch.randn(v + 1, d, generator=gen).to(dev, dtype)
     idx = torch.randint(0, v, (e,), generator=gen, dtype=torch.int32).to(dev)
-    n0 = tpr.gather_rows.launches
+    n0 = _build.launch_counts()["gather_rows"]
     for h in (base[:v], base[1:]):      # the second off 16-byte alignment
         got = tpr.gather_rows(h, idx)
         torch.cuda.synchronize()
         assert torch.equal(got, h.index_select(0, idx))
-    assert tpr.gather_rows.launches == n0 + 2
+    assert _build.launch_counts()["gather_rows"] == n0 + 2
 
 
 def _ablation_plan(dev, v=4096, e=40000):
@@ -1756,11 +1769,11 @@ def test_ablate_rows_match_their_plain_versions(dev, dtype, d, mode):
     w = torch.rand(plan.n_edge, generator=gen).to(dev)
     table, width = ((tpr.pad_rows(h), d) if mode == "aligned"
                     else (h, None))
-    n0 = tpr.ablate_rows.launches
+    n0 = _build.launch_counts()["ablate_rows"]
     got = tpr.ablate_rows(table, w, plan, mode, width=width)
     again = tpr.ablate_rows(table, w, plan, mode, width=width)
     torch.cuda.synchronize()
-    assert tpr.ablate_rows.launches == n0 + 2
+    assert _build.launch_counts()["ablate_rows"] == n0 + 2
     assert torch.equal(got, again)
     if mode in ("full", "aligned"):
         assert torch.equal(got, tsp.spmm_raw(h, w, plan))
@@ -1792,7 +1805,7 @@ def test_iteration_bwd_recompute_matches_plain_and_stashed(dev, dtype, d,
     ip = (c["pa"], c["pb"], c["h"], c["ems"], c["w2"], c["b1"], c["b2"])
     recv = c["plans"].recv
     sig = tsp.iteration_pair_fwd(*ip, c["plans"])[2]
-    n0 = tpr.iteration_pair_bwd_recompute.launches
+    n0 = _build.launch_counts()["iteration_pair_bwd_recompute"]
     got = tpr.iteration_pair_bwd_recompute(*ip, g_mi, g_mo, c["plans"])
     again = tpr.iteration_pair_bwd_recompute(*ip, g_mi, g_mo, c["plans"])
     stashed = tsp.iteration_pair_bwd(*ip, g_mi, g_mo, c["plans"], sig)
@@ -1801,7 +1814,7 @@ def test_iteration_bwd_recompute_matches_plain_and_stashed(dev, dtype, d,
     stash_ref = tsp.iteration_pair_bwd_stashed_reference(
         *ip[:6], sig, g_mi, g_mo, recv.sorted_oth, recv.sorted_seg, c["v"])
     torch.cuda.synchronize()
-    assert tpr.iteration_pair_bwd_recompute.launches == n0 + 2
+    assert _build.launch_counts()["iteration_pair_bwd_recompute"] == n0 + 2
     names = ("dh", "dpa", "dpb", "dw2", "db1", "db2")
     for name, a, b, p, q, s in zip(names, got, again, stashed, ref,
                                    stash_ref):

@@ -189,3 +189,75 @@ def test_measurement_modules_raise_without_a_card():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+CUDA_OPS = "gnn_fpga_tpu_torch.ops.cuda"
+
+
+def _reach_ins(path: Path, attributes: bool) -> list:
+    """Where ``path`` takes a name that starts with ``_`` from a module
+    under ``ops/cuda`` other than its own: an import of one, or (with
+    ``attributes``) an attribute of such a module read by the name it
+    was imported as."""
+    own = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    tree = ast.parse(path.read_text())
+    found, aliases = [], set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom) or node.module is None:
+            continue
+        if node.module.startswith(CUDA_OPS + ".") and node.module != own:
+            found += [(node.lineno, f"{node.module}.{a.name}")
+                      for a in node.names if a.name.startswith("_")]
+        elif node.module == CUDA_OPS:
+            aliases.update(a.asname or a.name for a in node.names
+                           if f"{CUDA_OPS}.{a.name}" != own)
+    if attributes:
+        found += [(node.lineno, f"{node.value.id}.{node.attr}")
+                  for node in ast.walk(tree)
+                  if isinstance(node, ast.Attribute)
+                  and isinstance(node.value, ast.Name)
+                  and node.value.id in aliases and node.attr.startswith("_")]
+    return found
+
+
+def _spmm_imports(path: Path) -> list:
+    """``(line, enclosing function or None)`` of each import of the
+    message-passing kernels' module (``ops/cuda/spmm.py``) in ``path``."""
+    found = []
+
+    def visit(node, fn):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [f"{node.module}.{a.name}" for a in node.names]
+                 if isinstance(node, ast.ImportFrom) and node.module else [])
+        if any(n.startswith(CUDA_OPS + ".spmm") for n in names):
+            found.append((node.lineno, fn))
+        if isinstance(node, ast.FunctionDef):
+            fn = node.name
+        for child in ast.iter_child_nodes(node):
+            visit(child, fn)
+
+    visit(ast.parse(path.read_text()), None)
+    return found
+
+
+# The one import of ops/cuda/spmm.py left in core/: the plan format, which
+# attach_plans builds, lives there until it moves (ROADMAP.md).
+CORE_PLAN_IMPORTS = [("graph.py", "attach_plans")]
+
+
+def test_no_module_reaches_into_a_kernel_modules_private_names():
+    """The kernels' launch layer is ``ops/cuda/_build.py``'s public names:
+    no module of the package imports or reads a ``_`` name of another
+    ``ops/cuda`` module, no test imports one, and the core layer imports
+    nothing of the message-passing kernels' module but the plans."""
+    package = sorted((ROOT / "gnn_fpga_tpu_torch").rglob("*.py"))
+    tests = sorted((ROOT / "tests").glob("*.py"))
+    assert len(package) > 50 and len(tests) > 40
+    bad = [(f.relative_to(ROOT), *r) for f in package
+           for r in _reach_ins(f, attributes=True)]
+    bad += [(f.relative_to(ROOT), *r) for f in tests
+            for r in _reach_ins(f, attributes=False)]
+    assert not bad, bad
+    core = sorted((ROOT / "gnn_fpga_tpu_torch" / "core").glob("*.py"))
+    assert [(f.name, fn) for f in core
+            for _, fn in _spmm_imports(f)] == CORE_PLAN_IMPORTS

@@ -24,6 +24,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from gnn_fpga_tpu.ops.pallas import spmm as jsp
+from gnn_fpga_tpu_torch.ops.cuda import _build
 from gnn_fpga_tpu_torch.ops.cuda import spmm as tsp
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -486,9 +487,9 @@ def test_row_launch_for_tables_of_mixed_alignment(dtype):
             big[width:(v + 1) * width].view(v, width),
             big[1:v * width + 1].view(v, width),
             big[2:v * width + 2].view(v, width))
-    aligns = [tsp._alignment(t) for t in tabs]
+    aligns = [_build.alignment(t) for t in tabs]
     assert len(set(aligns)) > 1
-    align = tsp._alignment(*tabs)
+    align = _build.alignment(*tabs)
     assert align == min(aligns) == dtype.itemsize
     la = tsp.row_launch(width, dtype, align)
     assert la == min((tsp.row_launch(width, dtype, a) for a in aligns),
@@ -510,11 +511,11 @@ def test_alignment_of_table_views():
     a row slice of a 66-wide bf16 table starts 132 bytes in (4-byte
     aligned), a slice one element in 2 bytes in."""
     t = torch.zeros((10, 66), dtype=torch.bfloat16)
-    assert tsp._alignment(t) == 16
-    assert tsp._alignment(t, t[1:]) == 4
-    assert tsp._alignment(t.flatten()[1:]) == 2
-    assert tsp._alignment(torch.zeros((10, 64))[1:]) == 16
-    assert tsp._alignment(torch.zeros(0)) == 16
+    assert _build.alignment(t) == 16
+    assert _build.alignment(t, t[1:]) == 4
+    assert _build.alignment(t.flatten()[1:]) == 2
+    assert _build.alignment(torch.zeros((10, 64))[1:]) == 16
+    assert _build.alignment(torch.zeros(0)) == 16
 
 
 @pytest.mark.parametrize("width", WIDTHS)

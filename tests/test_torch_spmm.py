@@ -120,12 +120,14 @@ def test_iteration_pair_matches_jax_bf16(kind):
 
 def test_wrappers_do_not_count_on_cpu():
     c = _case(15, 64, 128, 8, 8, "padded")
-    before = (tsp.iteration_pair.launches, tsp.aggregate_pair.launches)
+    counts = lambda: tuple(tsp.launch_counts()[k]
+                           for k in ("iteration_pair", "aggregate_pair"))
+    before = counts()
     _torch_iteration(c, torch.float32)
     plans = tsp.build_agg_plans(c["s"], c["r"], c["v"])
     tsp.aggregate_pair(torch.from_numpy(c["h"]), torch.from_numpy(c["w"]),
                        plans)
-    assert (tsp.iteration_pair.launches, tsp.aggregate_pair.launches) == before
+    assert counts() == before
 
 
 def test_non_cpu_non_cuda_tensor_raises_not_falls_back():

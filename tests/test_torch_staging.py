@@ -283,6 +283,18 @@ def test_close_frees_the_rings(monkeypatch):
     assert torch.equal(g.x, _graph(0).x)       # what the consumer kept
 
 
+def test_a_batch_that_is_not_tensor_fields_raises_on_a_card(monkeypatch):
+    """A card's prefetcher stages TensorFields only: anything else raises
+    ``TypeError`` naming its type, at the consumer's next take."""
+    fake_card.install(monkeypatch)
+    it = prefetch.PrefetchIterator(iter([_graph(0), {"x": torch.ones(3)}]),
+                                   size=2)
+    assert torch.equal(next(it).x, _graph(0).x)
+    with pytest.raises(TypeError, match="dict"):
+        next(it)
+    it.close()
+
+
 def test_ring_under_frequent_thread_switches(monkeypatch):
     """The worker and the consumer switched every microsecond: a consumer
     that keeps every third batch for a while and drops the rest reads
